@@ -1,0 +1,211 @@
+"""Speaker-conditioned mask estimator: port of ``tssep_tpu/nn/estimator.py``.
+
+The serving forward of ``MaskEstimator``: shared ``pre_net`` RNNP over the
+mixture -> speaker-embedding conditioning ('mul' elementwise or 'cat'
+concatenation) -> per-speaker BLSTM stack with the speakers folded into the
+batch -> optional TS-VAD cross-speaker stacking before the last BLSTM -> linear
+head -> per-speaker (mask, time, frequency) logits -> sigmoid, with the
+optional ``explicit_vad`` gate.
+
+From ``pre_net`` on, activations are kept in the storage dtype; the head and
+its outputs are float32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import typing
+
+import torch
+from torch import nn
+
+from tssep_tpu_torch.nn.init import linear_init_
+from tssep_tpu_torch.nn.rnnp import RNNP
+from tssep_tpu_torch.utils.device import resolve_device
+
+__all__ = ['MaskEstimator', 'Output']
+
+
+@dataclasses.dataclass
+class Output:
+    mask: typing.Any
+    logit: typing.Any
+    embedding: typing.Any = None
+    vad_mask: typing.Any = None
+    vad_logit: typing.Any = None
+
+
+def _not_ported(what):
+    return NotImplementedError(f'MaskEstimator: {what} is not ported yet')
+
+
+class MaskEstimator(nn.Module):
+    """See the module docstring. Arguments as ``tssep_tpu``'s
+    ``MaskEstimator``; the options the flagship does not use raise
+    ``NotImplementedError``."""
+
+    def __init__(self, *, idim=80, odim=None, layers=3, units=300, projs=320,
+                 dropout=0, nmask=1, pre_net='RNNP', aux_net=None,
+                 aux_net_output_size=None, combination='cat', ts_vad=False,
+                 output_resolution='tf', random_speaker_order=True,
+                 num_averaged_permutations=1, input_normalizer=None,
+                 aux_normalizer=None, explicit_vad=False,
+                 storage_dtype=torch.bfloat16, device='cuda'):
+        super().__init__()
+        device = resolve_device(device)
+        if aux_net is not None:
+            raise _not_ported('aux_net')
+        if input_normalizer is not None or aux_normalizer is not None:
+            raise _not_ported('an input or aux normalizer')
+        if num_averaged_permutations != 1:
+            raise _not_ported('num_averaged_permutations > 1')
+        if output_resolution == 't' and explicit_vad:
+            raise ValueError("explicit_vad needs output_resolution='tf'")
+        if ts_vad and not 2 < ts_vad < 20:
+            raise ValueError(f'ts_vad={ts_vad}')
+        if aux_net_output_size is None:
+            aux_net_output_size = 100      # the JAX config's i-vector default
+        if odim is None:
+            odim = idim
+        self.idim, self.odim, self.layers = idim, odim, layers
+        self.units, self.projs, self.nmask = units, projs, nmask
+        self.combination = combination
+        self.ts_vad = ts_vad
+        self.output_resolution = output_resolution
+        self.random_speaker_order = random_speaker_order
+        self.explicit_vad = explicit_vad
+        self.aux_net_output_size = aux_net_output_size
+        self.storage_dtype = storage_dtype
+        self.ts_factor = int(ts_vad) if ts_vad else 1
+
+        rnnp = dict(dropout=dropout, storage_dtype=storage_dtype,
+                    device=device)
+        if pre_net == 'RNNP':
+            self.pre_net = RNNP(idim, elayers=1, cdim=units, hdim=odim, **rnnp)
+        elif pre_net in (None, False):
+            self.pre_net = None
+        else:
+            raise ValueError(pre_net)
+
+        if combination == 'cat':
+            first_birnn_idim = odim + aux_net_output_size
+        elif combination == 'mul':
+            if aux_net_output_size != odim:
+                raise ValueError(
+                    f"combination='mul' needs aux embeddings of size odim="
+                    f"{odim}, got aux_net_output_size={aux_net_output_size}")
+            first_birnn_idim = odim
+        else:
+            raise NotImplementedError(combination)
+
+        if output_resolution == 'tf':
+            self.final_out_features = ((odim + int(explicit_vad)) * nmask
+                                       * self.ts_factor)
+        elif output_resolution == 't':
+            self.final_out_features = nmask * self.ts_factor
+        else:
+            raise ValueError(output_resolution)
+
+        self.post_net = nn.Module()
+        for l in range(layers):
+            in_l = first_birnn_idim if l == 0 else projs
+            if l == layers - 1 and ts_vad:
+                in_l *= self.ts_factor
+            self.post_net.add_module(
+                f'birnn{l}', RNNP(in_l, elayers=1, cdim=units, hdim=projs,
+                                  **rnnp))
+        self.post_net.add_module(
+            f'linear{layers - 1}',
+            nn.Linear(projs, self.final_out_features, device=device))
+
+    def init_params(self, generator: torch.Generator):
+        if self.pre_net is not None:
+            self.pre_net.init_params(generator)
+        for l in range(self.layers):
+            getattr(self.post_net, f'birnn{l}').init_params(generator)
+        linear_init_(getattr(self.post_net, f'linear{self.layers - 1}'),
+                     generator)
+
+    def num_params(self):
+        return sum(p.numel() for p in self.parameters())
+
+    def reshape_head(self, logit, S, T):
+        """Post-net linear output -> (B', S, nmask, T, Fh), float32."""
+        logit = logit.float()
+        B, M = logit.shape[0], self.nmask
+        if self.output_resolution == 'tf':
+            Fh = self.odim + int(self.explicit_vad)
+            if self.ts_vad:                       # (B', 1, T, S*M*Fh)
+                return logit.reshape(B, T, S, M, Fh).permute(0, 2, 3, 1, 4)
+            return logit.reshape(B, S, T, M, Fh).permute(0, 1, 3, 2, 4)
+        if self.ts_vad:
+            logit = logit.reshape(B, T, S, M).permute(0, 2, 3, 1)
+        else:
+            logit = logit.reshape(B, S, T, M).permute(0, 1, 3, 2)
+        return logit[..., None].expand(logit.shape + (self.odim,))
+
+    def forward(self, xs, aux, generator: torch.Generator | None = None
+                ) -> Output:
+        """xs: (T, F) or (B, T, F); aux: (S, A) or (B, S, A). Returns masks
+        (B?, S, nmask, T, odim). With a ``generator`` and
+        ``random_speaker_order``, the speakers run in a random order drawn
+        from it, and the outputs come back in the input's order."""
+        batched = xs.dim() == 3
+        if not batched:
+            xs, aux = xs[None], aux[None]
+        B, T, _ = xs.shape
+        S = aux.shape[1]
+
+        perm = None
+        if self.random_speaker_order and generator is not None:
+            perm = torch.rand(B, S, generator=generator,
+                              device=generator.device).argsort(-1).to(
+                                  aux.device)
+            aux = torch.gather(aux, 1, perm[..., None].expand(aux.shape))
+        aux = aux.to(xs.dtype)
+
+        if self.pre_net is not None:
+            xs = self.pre_net(xs)
+        xs = xs.to(self.storage_dtype)
+        aux = aux.to(self.storage_dtype)
+
+        if self.combination == 'mul':
+            h = xs[:, None, :, :] * aux[:, :, None, :]
+        else:
+            h = torch.cat([xs[:, None].expand(B, S, T, xs.shape[-1]),
+                           aux[:, :, None, :].expand(B, S, T, aux.shape[-1])],
+                          dim=-1)                 # (B, S, T, F')
+
+        for l in range(self.layers):
+            if l == self.layers - 1 and self.ts_vad:
+                # cross-speaker stacking: (B, S, T, F) -> (B, 1, T, S*F)
+                h = h.transpose(1, 2).reshape(B, T, 1, -1).transpose(1, 2)
+            h = getattr(self.post_net, f'birnn{l}')(h)
+            if l < self.layers - 1:
+                h = torch.tanh(h)
+
+        lin = getattr(self.post_net, f'linear{self.layers - 1}')
+        logit = nn.functional.linear(h, lin.weight.to(h.dtype),
+                                     lin.bias.to(h.dtype))
+        logit = self.reshape_head(logit, S, T)
+
+        if perm is not None:
+            iperm = perm.argsort(-1)
+            logit = torch.gather(logit, 1, iperm.reshape(
+                iperm.shape + (1,) * (logit.dim() - 2)).expand(logit.shape))
+
+        embedding = aux[:, :, None, :]
+        if self.explicit_vad:
+            mask = torch.sigmoid(logit)
+            vad_mask = mask[..., 0]
+            out = Output(mask=mask[..., 1:] * vad_mask[..., None], logit=None,
+                         vad_mask=vad_mask, vad_logit=logit[..., 0],
+                         embedding=embedding)
+        else:
+            out = Output(mask=torch.sigmoid(logit), logit=logit,
+                         embedding=embedding)
+        if not batched:
+            out = Output(**{f.name: (None if getattr(out, f.name) is None
+                                     else getattr(out, f.name)[0])
+                            for f in dataclasses.fields(out)})
+        return out
