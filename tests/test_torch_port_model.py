@@ -199,9 +199,17 @@ def test_port_imports_no_jax():
     code = textwrap.dedent('''
         import importlib, pkgutil, sys
         import tssep_tpu_torch
-        for m in pkgutil.walk_packages(tssep_tpu_torch.__path__,
-                                       'tssep_tpu_torch.'):
-            importlib.import_module(m.name)
+        names = [m.name for m in pkgutil.walk_packages(
+            tssep_tpu_torch.__path__, 'tssep_tpu_torch.')]
+        for name in names:
+            importlib.import_module(name)
+        for name in ('tssep_tpu_torch.data.device_sim',
+                     'tssep_tpu_torch.data.dummy',
+                     'tssep_tpu_torch.signal.vad',
+                     'tssep_tpu_torch.tasks.losses',
+                     'tssep_tpu_torch.train.optimizer',
+                     'tssep_tpu_torch.train.trainer'):
+            assert name in names, name
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'jaxlib', 'tssep_tpu'))

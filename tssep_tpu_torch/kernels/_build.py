@@ -1,9 +1,11 @@
-"""Build the port's CUDA kernels with one ``nvcc`` call and load them with ctypes.
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
 Every ``csrc/*.cu`` file exposes a plain C interface, so the build needs no
-PyTorch headers and takes seconds. The shared library goes to ``build/`` at
-the repository root, named by a hash of the sources and flags, and is built at
-first use: a process that finds a library for the current sources loads it.
+PyTorch headers and takes seconds. Each source compiles in its own ``nvcc``
+process, all started together, and one more call links the objects. The
+shared library goes to ``build/`` at the repository root, named by a hash of
+the sources and flags, and is built at first use: a process that finds a
+library for the current sources loads it.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -36,6 +38,11 @@ _SIGNATURES = {
                                   _LL, _I, _I, _I, _I, _I, _P],
     'tssep_blstm_bidi_fwd': [_P, _LL, _LL, _P, _P, _P, _LL, _LL, _I, _I, _I,
                              _I, _I, _P],
+    'tssep_blstm_fullfused_bwd': [_P, _LL, _LL, _I, _P, _P, _P, _P, _P, _P,
+                                  _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _I,
+                                  _I, _I, _I, _I, _P],
+    'tssep_blstm_bidi_bwd': [_P, _LL, _LL, _P, _P, _P, _P, _LL, _LL, _P, _LL,
+                             _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -66,21 +73,43 @@ def _nvcc():
     return nvcc
 
 
+def _run_all(cmds):
+    """Runs the commands side by side; raises if any fails. Returns their
+    combined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed with exit code {proc.returncode}'
+                               f' on {cmd[-1]}:\n{log}')
+    return ''.join(logs)
+
+
 def build() -> BuildResult:
-    """Compile every ``csrc/*.cu`` in one ``nvcc`` call into ``build/``."""
+    """Compile every ``csrc/*.cu`` in parallel and link them into ``build/``."""
     out = _library_path()
     BUILD_DIR.mkdir(exist_ok=True)
+    tag = f'{out.stem}.{os.getpid()}'
+    objects = [BUILD_DIR / f'{tag}.{src.stem}.o' for src in _sources()]
     tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
+                        for src, obj in zip(_sources(), objects)])
+        log += _run_all([[nvcc, *NVCC_FLAGS, '-shared', '-o', str(tmp),
+                          *map(str, objects)]])
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f'nvcc failed with exit code {proc.returncode}:\n'
-                           f'{proc.stdout}{proc.stderr}')
+        raise
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
     os.replace(tmp, out)
-    return BuildResult(out, seconds, proc.stdout + proc.stderr)
+    return BuildResult(out, seconds, log)
 
 
 @functools.cache

@@ -1,11 +1,12 @@
 """Speaker-conditioned mask estimator: port of ``tssep_tpu/nn/estimator.py``.
 
-The serving forward of ``MaskEstimator``: shared ``pre_net`` RNNP over the
-mixture -> speaker-embedding conditioning ('mul' elementwise or 'cat'
-concatenation) -> per-speaker BLSTM stack with the speakers folded into the
-batch -> optional TS-VAD cross-speaker stacking before the last BLSTM -> linear
-head -> per-speaker (mask, time, frequency) logits -> sigmoid, with the
-optional ``explicit_vad`` gate.
+The forward of ``MaskEstimator``, for serving and for training: shared
+``pre_net`` RNNP over the mixture -> speaker-embedding conditioning ('mul'
+elementwise or 'cat' concatenation) -> per-speaker BLSTM stack with the
+speakers folded into the batch -> optional TS-VAD cross-speaker stacking
+before the last BLSTM -> linear head -> per-speaker (mask, time, frequency)
+logits -> sigmoid, with the optional ``explicit_vad`` gate. In training,
+dropout between the post-net layers draws from the caller's generator.
 
 From ``pre_net`` on, activations are kept in the storage dtype; the head and
 its outputs are float32.
@@ -20,7 +21,7 @@ import torch
 from torch import nn
 
 from tssep_tpu_torch.nn.init import linear_init_
-from tssep_tpu_torch.nn.rnnp import RNNP
+from tssep_tpu_torch.nn.rnnp import RNNP, inverted_dropout
 from tssep_tpu_torch.utils.device import resolve_device
 
 __all__ = ['MaskEstimator', 'Output']
@@ -76,6 +77,7 @@ class MaskEstimator(nn.Module):
         self.explicit_vad = explicit_vad
         self.aux_net_output_size = aux_net_output_size
         self.storage_dtype = storage_dtype
+        self.dropout = dropout
         self.ts_factor = int(ts_vad) if ts_vad else 1
 
         rnnp = dict(dropout=dropout, storage_dtype=storage_dtype,
@@ -144,12 +146,14 @@ class MaskEstimator(nn.Module):
             logit = logit.reshape(B, S, T, M).permute(0, 1, 3, 2)
         return logit[..., None].expand(logit.shape + (self.odim,))
 
-    def forward(self, xs, aux, generator: torch.Generator | None = None
-                ) -> Output:
+    def forward(self, xs, aux, generator: torch.Generator | None = None,
+                training=False) -> Output:
         """xs: (T, F) or (B, T, F); aux: (S, A) or (B, S, A). Returns masks
         (B?, S, nmask, T, odim). With a ``generator`` and
         ``random_speaker_order``, the speakers run in a random order drawn
-        from it, and the outputs come back in the input's order."""
+        from it, and the outputs come back in the input's order; when
+        ``training``, the generator also draws the dropout between the
+        post-net layers (``dropout > 0``)."""
         batched = xs.dim() == 3
         if not batched:
             xs, aux = xs[None], aux[None]
@@ -165,7 +169,7 @@ class MaskEstimator(nn.Module):
         aux = aux.to(xs.dtype)
 
         if self.pre_net is not None:
-            xs = self.pre_net(xs)
+            xs = self.pre_net(xs, generator, training)
         xs = xs.to(self.storage_dtype)
         aux = aux.to(self.storage_dtype)
 
@@ -180,8 +184,10 @@ class MaskEstimator(nn.Module):
             if l == self.layers - 1 and self.ts_vad:
                 # cross-speaker stacking: (B, S, T, F) -> (B, 1, T, S*F)
                 h = h.transpose(1, 2).reshape(B, T, 1, -1).transpose(1, 2)
-            h = getattr(self.post_net, f'birnn{l}')(h)
+            h = getattr(self.post_net, f'birnn{l}')(h, generator, training)
             if l < self.layers - 1:
+                if training:
+                    h = inverted_dropout(h, self.dropout, generator)
                 h = torch.tanh(h)
 
         lin = getattr(self.post_net, f'linear{self.layers - 1}')
