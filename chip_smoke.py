@@ -19,11 +19,22 @@ Phases, each of which must pass:
    from a seed) answers 3 requests of batch 16 through the kernels, which the
    launch counters prove, and its masks and waveforms agree with the same
    model run through the plain versions;
-5. training: the same model trains 3 steps at batch 16 on batches from the
+5. serving with ``cond_fuse``: the same weights answer 3 requests of batch
+   16, then 1 request with 2 permutation trials, through the conditioned
+   first post-net layer; masks and waveforms agree with the model without
+   ``cond_fuse`` and with the plain versions; the peak memory of one request
+   with and without ``cond_fuse``;
+6. training: the same model trains 3 steps at batch 16 on batches from the
    port's on-device simulator (``Trainer.train``, LogMAE, clipped Adam),
-   through all four kernels, with finite losses; then one step's loss and
-   every parameter's gradient agree with those through the plain versions,
-   in bfloat16 and in float32 storage.
+   through all four kernels of its path, with finite losses; then one
+   step's loss and every parameter's gradient agree with those through the
+   plain versions, in bfloat16 and in float32 storage;
+7. training with ``cond_fuse``: 3 steps as in 6 through the conditioned
+   layer, one step's loss and gradients against the plain versions and
+   against the model without ``cond_fuse``, and the peak memory of a step
+   with and without it;
+8. training with ``fullfuse=False``: 2 steps, every layer through the
+   gate-input kernels, one step's gradients against the plain versions.
 
 The last two lines of standard output are the kernels' JSON line and the
 device's JSON line. Without CUDA it exits with code 1 and prints no result.
@@ -108,6 +119,12 @@ SOURCES = {
                             'tssep_tpu/kernels/blstm.py:861'),
     'blstm_bidi_bwd': ('tssep_tpu_torch/kernels/csrc/blstm_bidi_bwd.cu',
                        'tssep_tpu/kernels/blstm.py:424'),
+    'blstm_fullfused_cond_fwd': ('tssep_tpu_torch/kernels/csrc/'
+                                 'blstm_fullfused_cond_fwd.cu',
+                                 'tssep_tpu/kernels/blstm.py:1656'),
+    'blstm_fullfused_cond_bwd': ('tssep_tpu_torch/kernels/csrc/'
+                                 'blstm_fullfused_cond_bwd.cu',
+                                 'tssep_tpu/kernels/blstm.py:1707'),
 }
 KERNELS = tuple(SOURCES)
 #: (label, B, T, F, H) of the fully fused kernel's calls and (label, B, T, H)
@@ -120,9 +137,11 @@ FULLFUSED_CASES = [('ragged', 13, 23, 12, 16),
                    ('pre_net', 256, FRAMES, BINS, HIDDEN),
                    ('birnn0', 256 * SPEAKERS, FRAMES, BINS, HIDDEN),
                    ('birnn1', 256 * SPEAKERS, FRAMES, 320, HIDDEN)]
+#: 'fullfuse=False' rows are the folded layers' calls on that path.
 BIDI_CASES = [('ragged', 13, 23, 16),
               ('serve birnn2', 16, FRAMES, HIDDEN),
-              ('birnn2', 256, FRAMES, HIDDEN)]
+              ('birnn2', 256, FRAMES, HIDDEN),
+              ('fullfuse=False birnn0', 16 * SPEAKERS, FRAMES, HIDDEN)]
 #: The backward kernels' calls: 'train' rows are one training step at
 #: batch 16, the others the bench's batch 256.
 FULLFUSED_BWD_CASES = [('ragged', 13, 23, 12, 16),
@@ -134,7 +153,20 @@ FULLFUSED_BWD_CASES = [('ragged', 13, 23, 12, 16),
                        ('birnn1', 256 * SPEAKERS, FRAMES, 320, HIDDEN)]
 BIDI_BWD_CASES = [('ragged', 13, 23, 16),
                   ('train birnn2', 16, FRAMES, HIDDEN),
-                  ('birnn2', 256, FRAMES, HIDDEN)]
+                  ('birnn2', 256, FRAMES, HIDDEN),
+                  ('fullfuse=False birnn0', 16 * SPEAKERS, FRAMES, HIDDEN)]
+#: (label, B, S, T, F, H) of the conditioned kernels' calls: birnn0 of a
+#: served request or a training step at batch 16, and at batch 256.
+COND_CASES = [('ragged', 3, 4, 23, 12, 16),
+              ('serve birnn0', 16, SPEAKERS, FRAMES, BINS, HIDDEN),
+              ('birnn0', 256, SPEAKERS, FRAMES, BINS, HIDDEN)]
+COND_BWD_CASES = [('ragged', 3, 4, 23, 12, 16),
+                  ('train birnn0', 16, SPEAKERS, FRAMES, BINS, HIDDEN),
+                  ('birnn0', 256, SPEAKERS, FRAMES, BINS, HIDDEN)]
+#: The yardstick of the conditioned kernels: no single PyTorch call computes
+#: the layer, so the materialized product and cuDNN's LSTM, timed together.
+COND_LIBRARY = 'product + cuDNN, 2 calls'
+
 
 
 def log(*args):
@@ -199,7 +231,7 @@ def _max_err(got, want):
 
 
 def _case(name, dtype, run, run_plain, outputs, plain_outputs, flops,
-          nbytes, library=None):
+          nbytes, library=None, library_label='cuDNN'):
     err = _max_err(outputs, plain_outputs)
     check(err <= KERNEL_ATOL[dtype],
           f'{name} max abs error {err:.3g} > {KERNEL_ATOL[dtype]}')
@@ -215,7 +247,8 @@ def _case(name, dtype, run, run_plain, outputs, plain_outputs, flops,
     return {'name': name, 'dtype': str(dtype).split('.')[-1],
             'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
             'bound_ms': bound_ms, 'bound_by': bound_by,
-            'library_ms': library_ms}
+            'library_ms': library_ms,
+            'library': library_label if library else None}
 
 
 def fullfused_case(label, B, T, F, H, dtype, gen):
@@ -239,6 +272,40 @@ def fullfused_case(label, B, T, F, H, dtype, gen):
         nbytes=size * (B * T * F + 2 * (F + H) * 4 * H + B * T * 2 * H)
         + 4 * 2 * 4 * H,
         library=lambda: lstm(x))
+
+
+def _cond_inputs(B, S, T, F, H, dtype, gen):
+    xs = torch.randn(B, T, F, generator=gen, device='cuda').to(dtype)
+    aux = torch.rand(B, S, F, generator=gen, device='cuda').to(dtype)
+    b = 1 / H ** 0.5
+    w_ih_t = _uniform(gen, (2, F, 4 * H), b, dtype)
+    w_hh_t = _uniform(gen, (2, H, 4 * H), b, dtype)
+    bias = _uniform(gen, (2, 4 * H), 2 * b, F32)
+    return xs, aux, w_ih_t, w_hh_t, bias
+
+
+def cond_case(label, B, S, T, F, H, dtype, gen):
+    size = torch.finfo(dtype).bits // 8
+    args = _cond_inputs(B, S, T, F, H, dtype, gen)
+    xs, aux = args[:2]
+    got = kb.blstm_fullfused_cond_fwd(*args, with_cell=True)
+    want = kb.blstm_fullfused_cond_fwd_plain(*args, with_cell=True)
+    lstm = torch.nn.LSTM(F, H, bidirectional=True, batch_first=True,
+                         device='cuda', dtype=dtype)
+    lstm.flatten_parameters()
+    rows = B * S
+    # operations: the recurrence's products, and the product xs * aux; bytes:
+    # xs, aux and the weights read once, h written once
+    return _case(
+        f'blstm_fullfused_cond_fwd {label} B={B} S={S} T={T} F={F} H={H}',
+        dtype, lambda: kb.blstm_fullfused_cond_fwd(*args),
+        lambda: kb.blstm_fullfused_cond_fwd_plain(*args), got, want,
+        flops=2 * rows * T * 2 * (F + H) * 4 * H + rows * T * F,
+        nbytes=size * (B * T * F + rows * F + 2 * (F + H) * 4 * H
+                       + rows * T * 2 * H) + 4 * 2 * 4 * H,
+        library=lambda: lstm((xs[:, None] * aux[:, :, None]).reshape(
+            rows, T, F)),
+        library_label=COND_LIBRARY)
 
 
 def bidi_case(label, B, T, H, dtype, gen):
@@ -277,7 +344,8 @@ def bwd_bound(rec_flops, grad_flops, nbytes, dtype):
             'operations' if t_ops >= t_bytes else 'bytes')
 
 
-def _bwd_case(name, dtype, run, run_plain, out_names, bound_, library=None):
+def _bwd_case(name, dtype, run, run_plain, out_names, bound_, library=None,
+              library_label='cuDNN backward'):
     """Kernel against plain version, each output's error over its peak;
     the plain version is timed once, by the run that gives the reference.
     ``library`` makes the yardstick's call."""
@@ -305,7 +373,8 @@ def _bwd_case(name, dtype, run, run_plain, out_names, bound_, library=None):
             'max_abs_err': max(e['max_abs_err'] for e in errs.values()),
             'max_rel_err': rel, 'errors': errs, 'ms': ms,
             'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
-            'library_ms': library_ms}
+            'library_ms': library_ms,
+            'library': library_label if library else None}
 
 
 def fullfused_bwd_case(label, B, T, F, H, dtype, gen):
@@ -347,6 +416,52 @@ def fullfused_bwd_case(label, B, T, F, H, dtype, gen):
         library=library)
 
 
+def cond_bwd_case(label, B, S, T, F, H, dtype, gen):
+    size = torch.finfo(dtype).bits // 8
+    inputs = _cond_inputs(B, S, T, F, H, dtype, gen)
+    xs, aux = inputs[:2]
+    h, c = kb.blstm_fullfused_cond_fwd(*inputs, with_cell=True)
+    dh = (0.1 * torch.randn(B, S, T, 2 * H, generator=gen,
+                            device='cuda')).to(dtype)
+    args = (*inputs, h, c, dh)
+    rows = B * S
+
+    def library():
+        """Yardstick: the backward of the materialized product and of
+        cuDNN's bidirectional LSTM at the same shapes, from a kept graph."""
+        lstm = torch.nn.LSTM(F, H, bidirectional=True, batch_first=True,
+                             device='cuda', dtype=dtype)
+        lstm.flatten_parameters()
+        xs_leaf = xs.detach().requires_grad_()
+        aux_leaf = aux.detach().requires_grad_()
+        out, _ = lstm((xs_leaf[:, None] * aux_leaf[:, :, None]).reshape(
+            rows, T, F))
+        leaves = [xs_leaf, aux_leaf, *lstm.parameters()]
+        dout = dh.reshape(rows, T, 2 * H)
+        return lambda: torch.autograd.grad(out, leaves, dout,
+                                           retain_graph=True)
+
+    # operations: the fully fused backward's over the B S conditioned rows
+    # (gate recompute on storage operands; dh, the weight and bias sums and
+    # dcond on f32 ones) and the split into dx and daux (2 B S T F
+    # multiply-adds, f32). bytes: xs, aux, h, c, dh and the weights read
+    # once; dx, daux and the weight gradients written once (f32).
+    rec = 2 * rows * T * 2 * (F + H) * 4 * H
+    grad = (2 * rows * T * 2 * (4 * H * H + (F + H + 1) * 4 * H + 4 * H * F)
+            + 2 * 2 * rows * T * F)
+    nbytes = (size * (B * T * F + rows * F + 3 * rows * T * 2 * H
+                      + 2 * (F + H) * 4 * H)
+              + 4 * (2 * 4 * H + B * T * F + rows * F
+                     + 2 * (F + H + 1) * 4 * H))
+    return _bwd_case(
+        f'blstm_fullfused_cond_bwd {label} B={B} S={S} T={T} F={F} H={H}',
+        dtype, lambda: kb.blstm_fullfused_cond_bwd(*args),
+        lambda: kb.blstm_fullfused_cond_bwd_plain(*args),
+        ('dx', 'daux', 'dw_ih', 'dw_hh', 'db'),
+        bwd_bound(rec, grad, nbytes, dtype), library=library,
+        library_label=COND_LIBRARY)
+
+
 def bidi_bwd_case(label, B, T, H, dtype, gen):
     size = torch.finfo(dtype).bits // 8
     xg = torch.randn(B, T, 8 * H, generator=gen, device='cuda').to(dtype)
@@ -377,7 +492,9 @@ def phase_kernels():
     plan = [('blstm_fullfused_fwd', fullfused_case, FULLFUSED_CASES),
             ('blstm_bidi_fwd', bidi_case, BIDI_CASES),
             ('blstm_fullfused_bwd', fullfused_bwd_case, FULLFUSED_BWD_CASES),
-            ('blstm_bidi_bwd', bidi_bwd_case, BIDI_BWD_CASES)]
+            ('blstm_bidi_bwd', bidi_bwd_case, BIDI_BWD_CASES),
+            ('blstm_fullfused_cond_fwd', cond_case, COND_CASES),
+            ('blstm_fullfused_cond_bwd', cond_bwd_case, COND_BWD_CASES)]
     for dtype in (F32, BF16):
         for name, case_fn, cases in plan:
             for case in cases:
@@ -420,29 +537,36 @@ def _plain_forward(model, ex):
         return model(ex)
 
 
-def _agreement(model, ex, dtype):
-    got, want = model(ex), _plain_forward(model, ex)
+def _agreement(model, ex, dtype, reference=None, what='plain versions'):
+    """Masks and waveforms of ``model`` against ``reference`` on ``ex``:
+    the same model through the plain versions unless ``reference`` is
+    another model."""
+    got = model(ex)
+    want = (_plain_forward(model, ex) if reference is None
+            else reference(ex))
     mask_err = (got.mask - want.mask).abs().max().item()
     peak = want.time_estimate.abs().max().item()
     wave_err = (got.time_estimate - want.time_estimate).abs().max().item() / peak
-    log(f'serve {dtype}: kernels against plain versions: mask max abs err '
+    log(f'serve {dtype}: kernels against {what}: mask max abs err '
         f'{mask_err:.3g}, waveform max abs err / peak {wave_err:.3g} '
         f'(tolerance {SERVE_ATOL[dtype]})')
-    check(mask_err <= SERVE_ATOL[dtype], f'{dtype} served masks')
-    check(wave_err <= SERVE_ATOL[dtype], f'{dtype} served waveforms')
+    check(mask_err <= SERVE_ATOL[dtype], f'{dtype} served masks ({what})')
+    check(wave_err <= SERVE_ATOL[dtype], f'{dtype} served waveforms ({what})')
+    return {'mask_err': mask_err, 'wave_err': wave_err}
 
 
-def phase_serving():
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    model = Model.from_config(FLAGSHIP, storage_dtype=BF16, device='cuda')
-    model.init_params(torch.Generator().manual_seed(0))
-    gen = torch.Generator(device='cuda').manual_seed(1)
-    warm, *requests = [make_request(gen, SERVE_BATCH)
-                       for _ in range(1 + REQUESTS)]
-    model(warm)
-    torch.cuda.synchronize()
+def _flagship(storage_dtype=BF16, trials=1, **switches):
+    """The flagship model with random weights from seed 0."""
+    cfg = dict(FLAGSHIP, mask_estimator=dict(
+        FLAGSHIP['mask_estimator'], num_averaged_permutations=trials))
+    model = Model.from_config(cfg, storage_dtype=storage_dtype,
+                              device='cuda', **switches)
+    return model.init_params(torch.Generator().manual_seed(0))
 
+
+def _serve(model, requests):
+    """Serves ``requests`` with the launch counts set to 0 just before;
+    checks every output. Returns (ms per request, launches)."""
     _reset_launches()
     times = []
     for ex in requests:
@@ -457,19 +581,96 @@ def phase_serving():
         check(bool(torch.isfinite(out.mask).all()), 'finite masks')
         check(bool(torch.isfinite(out.time_estimate).all()),
               'finite waveforms')
-    launches = _launches()
+    return times, _launches()
+
+
+def _expect(per_run, runs):
+    """Launch counts of ``runs`` runs: ``per_run`` per run, 0 elsewhere."""
+    return {name: runs * per_run.get(name, 0) for name in KERNELS}
+
+
+def _peak_mib(fn):
+    """Peak memory of ``fn()`` over what was allocated before, in MiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+
+
+def _requests():
+    """A warm-up request and ``REQUESTS`` requests, the same every call."""
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    return [make_request(gen, SERVE_BATCH) for _ in range(1 + REQUESTS)]
+
+
+def phase_serving():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _flagship()
+    warm, *requests = _requests()
+    model(warm)
+    torch.cuda.synchronize()
+
+    times, launches = _serve(model, requests)
     log(f'serve: {REQUESTS} requests of batch {SERVE_BATCH}, ms each '
         f'{[round(t, 2) for t in times]}, launches {launches}')
-    check(launches == {'blstm_fullfused_fwd': 3 * REQUESTS,
-                       'blstm_bidi_fwd': REQUESTS,
-                       'blstm_fullfused_bwd': 0, 'blstm_bidi_bwd': 0},
+    check(launches == _expect({'blstm_fullfused_fwd': 3,
+                               'blstm_bidi_fwd': 1}, REQUESTS),
           f'3 fully fused and 1 bidi launch per request, got {launches}')
 
     _agreement(model, requests[0], BF16)
-    model32 = Model.from_config(FLAGSHIP, storage_dtype=F32, device='cuda')
-    model32.load_state_dict(model.state_dict())
+    model32 = _flagship(F32)
     _agreement(model32, requests[0], F32)
     return launches
+
+
+def phase_serving_cond():
+    """The same weights and requests with ``cond_fuse``: birnn0 through the
+    conditioned kernel, at 1 and at 2 permutation trials."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, base = _flagship(cond_fuse=True), _flagship()
+    warm, *requests = _requests()
+    model(warm)
+    torch.cuda.synchronize()
+
+    times, launches = _serve(model, requests)
+    log(f'serve cond_fuse: {REQUESTS} requests of batch {SERVE_BATCH}, ms '
+        f'each {[round(t, 2) for t in times]}, launches {launches}')
+    per_request = {'blstm_fullfused_cond_fwd': 1, 'blstm_fullfused_fwd': 2,
+                   'blstm_bidi_fwd': 1}
+    check(launches == _expect(per_request, REQUESTS),
+          f'per request 1 conditioned, 2 fully fused and 1 bidi launch, got '
+          f'{launches}')
+    agree = {'cond_fuse=False': _agreement(model, requests[0], BF16, base,
+                                           'the model without cond_fuse'),
+             'plain': _agreement(model, requests[0], BF16)}
+    agree['plain f32'] = _agreement(_flagship(F32, cond_fuse=True),
+                                    requests[0], F32)
+
+    model2, base2 = (_flagship(trials=2, cond_fuse=True),
+                     _flagship(trials=2))
+    model2(warm)
+    times2, launches2 = _serve(model2, requests[:1])
+    log(f'serve cond_fuse trials 2: 1 request of batch {SERVE_BATCH}, ms '
+        f'{[round(t, 2) for t in times2]}, launches {launches2}')
+    check(launches2 == _expect(per_request, 1),
+          f'trials 2: per request 1 conditioned, 2 fully fused and 1 bidi '
+          f'launch, got {launches2}')
+    agree['trials 2 cond_fuse=False'] = _agreement(
+        model2, requests[0], BF16, base2, 'the model without cond_fuse, '
+        'trials 2')
+    agree['trials 2 plain'] = _agreement(model2, requests[0], BF16)
+
+    peak = {'cond_fuse': _peak_mib(lambda: model(requests[0])),
+            'materialized': _peak_mib(lambda: base(requests[0]))}
+    log(f'serve: peak memory of one request of batch {SERVE_BATCH} over the '
+        f'weights (MiB): {json.dumps(peak)}')
+    return {'launches': launches, 'launches_trials2': launches2,
+            'ms': times, 'ms_trials2': times2, 'peak_mib': peak,
+            'agreement': agree}
 
 
 def _step_grads(model, batch, plain):
@@ -484,26 +685,33 @@ def _step_grads(model, batch, plain):
     return loss.item(), grads
 
 
-def _train_agreement(model, batch, dtype):
+def _train_agreement(model, batch, dtype, reference=None,
+                     what='plain versions'):
+    """One step's loss and gradients of ``model`` against the same model
+    through the plain versions, or against ``reference``, another model,
+    through the kernels."""
     loss, grads = _step_grads(model, batch, plain=False)
-    loss_plain, grads_plain = _step_grads(model, batch, plain=True)
+    loss_plain, grads_plain = (
+        _step_grads(model, batch, plain=True) if reference is None
+        else _step_grads(reference, batch, plain=False))
     rel = {n: ((grads[n] - g).abs().max()
                / g.abs().max().clamp(min=1e-30)).item()
            for n, g in grads_plain.items()}
     worst = max(rel, key=rel.get)
-    log(f'train {dtype}: kernels against plain versions: loss {loss:.6f} '
+    log(f'train {dtype}: kernels against {what}: loss {loss:.6f} '
         f'vs {loss_plain:.6f}, gradients max abs err / max abs over '
         f'{len(rel)} parameters {rel[worst]:.3g} ({worst}) (tolerance '
         f'{TRAIN_TOL[dtype]})')
-    check(abs(loss - loss_plain) <= TRAIN_TOL[dtype], f'{dtype} step loss')
-    check(rel[worst] <= TRAIN_TOL[dtype], f'{dtype} step gradients')
+    check(abs(loss - loss_plain) <= TRAIN_TOL[dtype],
+          f'{dtype} step loss ({what})')
+    check(rel[worst] <= TRAIN_TOL[dtype], f'{dtype} step gradients ({what})')
     return {'loss': loss, 'loss_plain': loss_plain,
             'max_rel_grad_err': rel[worst], 'worst_param': worst}
 
 
 _STEP_KERNELS = {'forward kernels': ('blstm_fwd_kernel',),
                  'backward kernels': ('blstm_bwd_walk_kernel', 'wgrad_kernel',
-                                      'dx_kernel')}
+                                      'dx_kernel', 'cond_daux_kernel')}
 
 
 def _profile_step(trainer, batch):
@@ -536,11 +744,10 @@ def _profile_step(trainer, batch):
     return split
 
 
-def phase_training(rows):
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    model = Model.from_config(FLAGSHIP, storage_dtype=BF16, device='cuda')
-    model.init_params(torch.Generator().manual_seed(0))
+def _train(model, steps, per_step, label):
+    """``Trainer.train`` for ``steps`` steps of batch ``TRAIN_BATCH`` on the
+    simulator's batches, with the launch counts set to 0 just before; checks
+    the losses and that each step launched ``per_step``."""
     sim = DeviceMeetingSimulator(duration=SAMPLES / 16000,
                                  num_speakers=SPEAKERS, aux_size=BINS)
     data = DeviceSimDataset(sim, TRAIN_BATCH, seed=2,
@@ -550,26 +757,25 @@ def phase_training(rows):
 
     _reset_launches()
     t0 = time.perf_counter()
-    losses = trainer.train(data, TRAIN_STEPS)
+    losses = trainer.train(data, steps)
     train_s = time.perf_counter() - t0
     launches = _launches()
-    log(f'train: Trainer.train {TRAIN_STEPS} steps of batch {TRAIN_BATCH} '
+    log(f'{label}: Trainer.train {steps} steps of batch {TRAIN_BATCH} '
         f'in {train_s:.2f} s (first calls included), losses {losses}, '
         f'launches {launches}')
-    check(len(losses) == TRAIN_STEPS, 'a loss per step')
-    check(all(map(math.isfinite, losses)), 'finite losses')
-    check(launches == {'blstm_fullfused_fwd': 3 * TRAIN_STEPS,
-                       'blstm_bidi_fwd': TRAIN_STEPS,
-                       'blstm_fullfused_bwd': 3 * TRAIN_STEPS,
-                       'blstm_bidi_bwd': TRAIN_STEPS},
-          f'3 fully fused and 1 bidi launch forward and backward per step, '
-          f'got {launches}')
+    check(len(losses) == steps, f'{label}: a loss per step')
+    check(all(map(math.isfinite, losses)), f'{label}: finite losses')
+    check(launches == _expect(per_step, steps),
+          f'{label}: per step {per_step}, got {launches}')
+    return trainer, data, losses, launches
 
-    # steady-state steps on fresh batches: the batch's generation and the
-    # step are timed apart, each ending in a synchronize
+
+def _step_times(trainer, data, steps, label):
+    """Steady-state steps on fresh batches: the batch's generation and the
+    step are timed apart, each ending in a synchronize."""
     it = iter(data)
     gen_ms, step_ms = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
         batch = next(it)
@@ -579,8 +785,20 @@ def phase_training(rows):
         trainer.train_step(batch)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t))
-    log(f'train: step ms {[round(t, 2) for t in step_ms]}, batch generation '
-        f'ms {[round(t, 2) for t in gen_ms]}')
+    log(f'{label}: step ms {[round(t, 2) for t in step_ms]}, batch '
+        f'generation ms {[round(t, 2) for t in gen_ms]}')
+    return gen_ms, step_ms, batch
+
+
+def phase_training(rows):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _flagship()
+    trainer, data, losses, launches = _train(
+        model, TRAIN_STEPS, {'blstm_fullfused_fwd': 3, 'blstm_bidi_fwd': 1,
+                             'blstm_fullfused_bwd': 3, 'blstm_bidi_bwd': 1},
+        'train')
+    gen_ms, step_ms, batch = _step_times(trainer, data, TRAIN_STEPS, 'train')
 
     # the kernels' share of a step: the kernels phase's times at the same
     # shapes (forward measured without c), and the profiler where it works
@@ -602,20 +820,73 @@ def phase_training(rows):
     log(f'train: step split from torch.profiler (ms): '
         f'{json.dumps(split) if split else "not measured"}')
 
-    agree = {'bfloat16': _train_agreement(model, batch, BF16)}
-    model32 = Model.from_config(FLAGSHIP, storage_dtype=F32, device='cuda')
-    model32.load_state_dict(model.state_dict())
-    agree['float32'] = _train_agreement(model32, batch, F32)
+    agree = _train_checks(model, batch, 'train')
     return {'launches': launches, 'losses': losses, 'step_ms': step_ms,
             'gen_ms': gen_ms, 'split_estimate': est, 'split_profiler': split,
             'agreement': agree}
 
 
-def kernels_line(rows, serve_launches, train_launches):
+def _train_checks(model, batch, label, **switches):
+    """One step's loss and gradients against the plain versions, in
+    bfloat16 and in float32 storage, on ``model``'s current weights."""
+    agree = {'bfloat16': _train_agreement(model, batch, BF16)}
+    model32 = _flagship(F32, **switches)
+    model32.load_state_dict(model.state_dict())
+    agree['float32'] = _train_agreement(model32, batch, F32)
+    log(f'{label}: one step against the plain versions agrees')
+    return agree
+
+
+def phase_training_cond():
+    """Training with ``cond_fuse``: birnn0 through the conditioned pair."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _flagship(cond_fuse=True)
+    trainer, data, losses, launches = _train(
+        model, TRAIN_STEPS, {'blstm_fullfused_cond_fwd': 1,
+                             'blstm_fullfused_cond_bwd': 1,
+                             'blstm_fullfused_fwd': 2,
+                             'blstm_fullfused_bwd': 2, 'blstm_bidi_fwd': 1,
+                             'blstm_bidi_bwd': 1}, 'train cond_fuse')
+    gen_ms, step_ms, batch = _step_times(trainer, data, TRAIN_STEPS,
+                                         'train cond_fuse')
+    agree = _train_checks(model, batch, 'train cond_fuse', cond_fuse=True)
+    base = _flagship()
+    base.load_state_dict(model.state_dict())
+    agree['cond_fuse=False'] = _train_agreement(
+        model, batch, BF16, base, 'the model without cond_fuse')
+    peak = {'cond_fuse': _peak_mib(lambda: _step_grads(model, batch, False)),
+            'materialized': _peak_mib(lambda: _step_grads(base, batch,
+                                                          False))}
+    log(f'train cond_fuse: peak memory of one step\'s forward and backward '
+        f'at batch {TRAIN_BATCH} over the weights (MiB): {json.dumps(peak)}')
+    return {'launches': launches, 'losses': losses, 'step_ms': step_ms,
+            'gen_ms': gen_ms, 'peak_mib': peak, 'agreement': agree}
+
+
+def phase_training_nofuse():
+    """Training with ``fullfuse=False``: every layer through the gate-input
+    kernels, the backward through ``BLSTMBidiCore`` (JAX ``_bi_core_bwd``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    steps = 2
+    model = _flagship(fullfuse=False)
+    trainer, data, losses, launches = _train(
+        model, steps, {'blstm_bidi_fwd': 4, 'blstm_bidi_bwd': 4},
+        'train fullfuse=False')
+    gen_ms, step_ms, batch = _step_times(trainer, data, steps,
+                                         'train fullfuse=False')
+    agree = _train_checks(model, batch, 'train fullfuse=False',
+                          fullfuse=False)
+    return {'launches': launches, 'losses': losses, 'step_ms': step_ms,
+            'gen_ms': gen_ms, 'agreement': agree}
+
+
+def kernels_line(rows, phase_launches):
     """Per kernel: the numbers of one served request (forward kernels) or
     one training step (backward kernels) at batch 16 in bfloat16 storage,
-    summed over its calls; the launches of the serving and training runs;
-    and every call measured."""
+    summed over its calls on that path; the launches of the main path's
+    runs, in all and by phase; and every call measured."""
     kernels = []
     for name, calls in rows.items():
         tag = ' serve ' if name.endswith('_fwd') else ' train '
@@ -626,15 +897,16 @@ def kernels_line(rows, serve_launches, train_launches):
         kernels.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name][0],
             'replaces': SOURCES[name][1],
-            'launches': serve_launches[name] + train_launches[name],
-            'launches_per_request': serve_launches[name] / REQUESTS,
-            'launches_per_step': train_launches[name] / TRAIN_STEPS,
+            'launches': sum(p[name] for p in phase_launches.values()),
+            'launches_by_phase': {phase: p[name] for phase, p in
+                                  phase_launches.items()},
             'max_abs_err': max(r['max_abs_err'] for r in path),
             'ms': sum(r['ms'] for r in path),
             'plain_ms': sum(r['plain_ms'] for r in path),
             'bound_ms': sum(r['bound_ms'] for r in path),
             'bound_by': top['bound_by'],
             'library_ms': None if None in lib else sum(lib),
+            'library': top['library'],
             'calls': calls,
         })
     return {'kernels': kernels}
@@ -652,11 +924,25 @@ def main():
     log(f'-- kernels done at {time.perf_counter() - t0:.1f} s')
     serve_launches = phase_serving()
     log(f'-- serving done at {time.perf_counter() - t0:.1f} s')
+    serving_cond = phase_serving_cond()
+    log(f'-- serving cond_fuse done at {time.perf_counter() - t0:.1f} s')
     training = phase_training(rows)
     log(f'-- training done at {time.perf_counter() - t0:.1f} s')
-    log(json.dumps({'training': training}))
-    print(json.dumps(kernels_line(rows, serve_launches,
-                                  training['launches'])))
+    training_cond = phase_training_cond()
+    log(f'-- training cond_fuse done at {time.perf_counter() - t0:.1f} s')
+    training_nofuse = phase_training_nofuse()
+    log(f'-- training fullfuse=False done at '
+        f'{time.perf_counter() - t0:.1f} s')
+    log(json.dumps({'serving cond_fuse': serving_cond, 'training': training,
+                    'training cond_fuse': training_cond,
+                    'training fullfuse=False': training_nofuse}))
+    print(json.dumps(kernels_line(rows, {
+        'serve': serve_launches,
+        'serve cond_fuse': serving_cond['launches'],
+        'serve cond_fuse trials 2': serving_cond['launches_trials2'],
+        'train': training['launches'],
+        'train cond_fuse': training_cond['launches'],
+        'train fullfuse=False': training_nofuse['launches']})))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

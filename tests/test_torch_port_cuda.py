@@ -151,3 +151,42 @@ def test_bwd_strided_inputs_read_in_place(gen):
     want = kb.blstm_bidi_bwd_plain(xg.contiguous(), w_hh_t, h, c,
                                    dh.contiguous())
     assert _rel_err(got, want) <= 1e-4
+
+
+def _cond_inputs(gen, dtype, B, S, T, F, H):
+    xs = torch.randn(B, T, F, generator=gen, device='cuda').to(dtype)
+    aux = torch.rand(B, S, F, generator=gen, device='cuda').to(dtype)
+    w_ih_t = _uniform(gen, (2, F, 4 * H), H ** -0.5, dtype)
+    w_hh_t = _uniform(gen, (2, H, 4 * H), H ** -0.5, dtype)
+    bias = _uniform(gen, (2, 4 * H), H ** -0.5, torch.float32)
+    return xs, aux, w_ih_t, w_hh_t, bias
+
+
+COND_CASES = [(3, 4, 23, 12, 16), (2, 8, 9, 513, 300)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,S,T,F,H', COND_CASES)
+def test_fullfused_cond_kernel_matches_plain(gen, dtype, B, S, T, F, H):
+    args = _cond_inputs(gen, dtype, B, S, T, F, H)
+    before = kb.blstm_fullfused_cond_fwd.launches
+    got = kb.blstm_fullfused_cond_fwd(*args, with_cell=True)
+    assert kb.blstm_fullfused_cond_fwd.launches == before + 1
+    want = kb.blstm_fullfused_cond_fwd_plain(*args, with_cell=True)
+    for g, w in zip(got, want):
+        assert g.shape == (B, S, T, 2 * H)
+        torch.testing.assert_close(g.float(), w.float(), atol=ATOL[dtype],
+                                   rtol=0)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,S,T,F,H', COND_CASES)
+def test_fullfused_cond_bwd_kernel_matches_plain(gen, dtype, B, S, T, F, H):
+    args = _cond_inputs(gen, dtype, B, S, T, F, H)
+    h, c = kb.blstm_fullfused_cond_fwd(*args, with_cell=True)
+    dh = torch.randn(B, S, T, 2 * H, generator=gen, device='cuda').to(dtype)
+    before = kb.blstm_fullfused_cond_bwd.launches
+    got = kb.blstm_fullfused_cond_bwd(*args, h, c, dh)
+    assert kb.blstm_fullfused_cond_bwd.launches == before + 1
+    want = kb.blstm_fullfused_cond_bwd_plain(*args, h, c, dh)
+    assert _rel_err(got, want) <= BWD_RTOL[dtype]

@@ -186,7 +186,7 @@ def test_load_npz_reads_a_jax_checkpoint(tmp_path):
 
 def test_not_ported_options_raise():
     cfg = _small_config('mul', 3, False)
-    cfg['mask_estimator']['num_averaged_permutations'] = 2
+    cfg['mask_estimator']['aux_net'] = {'factory': 'LinearAux'}
     with pytest.raises(NotImplementedError):
         Model.from_config(cfg, device='cpu')
 

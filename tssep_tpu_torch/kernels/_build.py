@@ -43,6 +43,13 @@ _SIGNATURES = {
                                   _I, _I, _I, _I, _P],
     'tssep_blstm_bidi_bwd': [_P, _LL, _LL, _P, _P, _P, _P, _LL, _LL, _P, _LL,
                              _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    'tssep_blstm_fullfused_cond_fwd': [_P, _LL, _LL, _I, _P, _I, _P, _P, _P,
+                                       _P, _P, _LL, _LL, _I, _I, _I, _I, _I,
+                                       _P],
+    'tssep_blstm_fullfused_cond_bwd': [_P, _LL, _LL, _I, _P, _I, _P, _P, _P,
+                                       _P, _P, _P, _P, _LL, _LL, _P, _LL, _LL,
+                                       _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _P],
 }
 
 

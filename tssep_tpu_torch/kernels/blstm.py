@@ -12,6 +12,13 @@ Backward: ``blstm_fullfused_bwd`` replaces ``_ff_bwd_kernel`` (:861, launched
 by ``_ff_layer_bwd`` :1074) and returns dx and every weight and bias
 gradient; ``blstm_bidi_bwd`` replaces ``_bi_bwd_kernel`` (:424, launched by
 ``_layer_bwd`` :697 and ``_bi_core_bwd`` :555) and returns dxg and dW_hh.
+
+Conditioned: ``blstm_fullfused_cond_fwd`` replaces ``_ffc_fwd_kernel``
+(:1656, launched by ``_ffc_fwd_impl`` :1858) and runs the first post-net
+layer on the 'mul'-conditioned rows ``xs[b] * aux[b, s]``, formed inside the
+kernel from xs (B, T, F) and aux (B, S, F); ``blstm_fullfused_cond_bwd``
+replaces ``_ffc_bwd_kernel`` (:1707, launched by ``_ffc_layer_bwd`` :1949)
+and returns dx summed over the speakers, daux and every weight gradient.
 The CUDA sources, with what bounds each kernel on an H100, are in ``csrc/``.
 
 Each wrapper takes one layer's two directions stacked on a leading axis of 2
@@ -34,9 +41,11 @@ import torch
 from tssep_tpu_torch.kernels import _build
 
 __all__ = ['blstm_fullfused_fwd', 'blstm_bidi_fwd', 'blstm_fullfused_bwd',
-           'blstm_bidi_bwd', 'blstm_fullfused_fwd_plain',
+           'blstm_bidi_bwd', 'blstm_fullfused_cond_fwd',
+           'blstm_fullfused_cond_bwd', 'blstm_fullfused_fwd_plain',
            'blstm_bidi_fwd_plain', 'blstm_fullfused_bwd_plain',
-           'blstm_bidi_bwd_plain']
+           'blstm_bidi_bwd_plain', 'blstm_fullfused_cond_fwd_plain',
+           'blstm_fullfused_cond_bwd_plain']
 
 _STORAGE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -85,6 +94,25 @@ def blstm_fullfused_fwd_plain(x, w_ih_t, w_hh_t, bias, *, with_cell=False):
 
     return _walk_plain(gates_in, w_hh_t, x.shape[0], x.shape[1], x.dtype,
                        with_cell)
+
+
+def _conditioned(xs, aux):
+    """The 'mul'-conditioned rows (B S, T, F) in the storage dtype, row
+    b S + s = ``xs[b] * aux[b, s]``: one rounding of the product, as the
+    materialized ``xs[:, None] * aux[:, :, None]``."""
+    B, T, F = xs.shape
+    return (xs[:, None] * aux[:, :, None]).reshape(B * aux.shape[1], T, F)
+
+
+def blstm_fullfused_cond_fwd_plain(xs, aux, w_ih_t, w_hh_t, bias, *,
+                                   with_cell=False):
+    """Plain version of :func:`blstm_fullfused_cond_fwd`: the product, then
+    the fully fused layer's walk."""
+    B, S = aux.shape[:2]
+    h, c = blstm_fullfused_fwd_plain(_conditioned(xs, aux), w_ih_t, w_hh_t,
+                                     bias, with_cell=with_cell)
+    return tuple(None if t is None else t.view(B, S, *t.shape[1:])
+                 for t in (h, c))
 
 
 def blstm_bidi_fwd_plain(xg, w_hh_t, *, with_cell=False):
@@ -153,8 +181,9 @@ def _weight_sums(rows, dgates):
     return torch.einsum('dbtm,dbtg->dmg', rows, dgates)
 
 
-def blstm_fullfused_bwd_plain(x, w_ih_t, w_hh_t, bias, h, c, dh):
-    """Plain version of :func:`blstm_fullfused_bwd`."""
+def _fullfused_bwd_sums(x, w_ih_t, w_hh_t, bias, h, c, dh):
+    """The gate gradients and the weight and bias sums of the fully fused
+    backward: ``(dgates, dw_ih_t, dw_hh_t, db)``."""
     wih = w_ih_t.float()
     b = bias.float()[:, None]
 
@@ -165,11 +194,35 @@ def blstm_fullfused_bwd_plain(x, w_ih_t, w_hh_t, bias, h, c, dh):
     xf = x.float().expand(2, *x.shape)
     dw_ih_t = _weight_sums(xf, dgates)
     dw_hh_t = _weight_sums(_previous(_directions(h)), dgates)
-    db = dgates.sum(dim=(1, 2))
+    return dgates, dw_ih_t, dw_hh_t, dgates.sum(dim=(1, 2))
+
+
+def blstm_fullfused_bwd_plain(x, w_ih_t, w_hh_t, bias, h, c, dh):
+    """Plain version of :func:`blstm_fullfused_bwd`."""
+    dgates, dw_ih_t, dw_hh_t, db = _fullfused_bwd_sums(x, w_ih_t, w_hh_t,
+                                                       bias, h, c, dh)
+    wih = w_ih_t.float()
     # dx per direction rounded to the storage dtype, summed in float32
     dx = sum(torch.matmul(dgates[d], wih[d].T).to(x.dtype).float()
              for d in range(2))
     return dx, dw_ih_t, dw_hh_t, db
+
+
+def blstm_fullfused_cond_bwd_plain(xs, aux, w_ih_t, w_hh_t, bias, h, c, dh):
+    """Plain version of :func:`blstm_fullfused_cond_bwd`."""
+    B, S = aux.shape[:2]
+    fold = lambda t: t.reshape(B * S, *t.shape[2:])    # noqa: E731
+    dgates, dw_ih_t, dw_hh_t, db = _fullfused_bwd_sums(
+        _conditioned(xs, aux), w_ih_t, w_hh_t, bias, fold(h), fold(c),
+        fold(dh))
+    wih = w_ih_t.float()
+    # both directions summed in float32, then split and rounded once
+    dcond = sum(torch.matmul(dgates[d], wih[d].T) for d in range(2))
+    dcond = dcond.view(B, S, *dcond.shape[1:])          # (B, S, T, F)
+    dx = (dcond * aux.float()[:, :, None]).sum(dim=1)
+    daux = (dcond * xs.float()[:, None]).sum(dim=2)
+    return (dx.to(xs.dtype).float(), daux.to(aux.dtype).float(), dw_ih_t,
+            dw_hh_t, db)
 
 
 def blstm_bidi_bwd_plain(xg, w_hh_t, h, c, dh):
@@ -208,8 +261,9 @@ def _check_stream_input(name, x):
                          f'{_STORAGE_DTYPES}, got {x.dtype}')
 
 
-def _launch_tile(x, H, shared_floats_per_row, tensors):
-    """Rows per block for a launch on ``x``; raises where no kernel runs."""
+def _launch_tile(x, H, shared_floats_per_row, tensors, rows=None):
+    """Rows per block for a launch on ``x`` with ``rows`` rows (default
+    ``x.shape[0]``); raises where no kernel runs."""
     if x.device.type != 'cuda':
         raise ValueError(f'no kernel for device {x.device}')
     if x.numel() == 0:
@@ -220,7 +274,7 @@ def _launch_tile(x, H, shared_floats_per_row, tensors):
         raise ValueError('weights, bias and saved states must be contiguous')
     if H > _MAX_HIDDEN:
         raise ValueError(f'hidden size {H} > {_MAX_HIDDEN}')
-    bt = _batch_tile(x.shape[0], x.device)
+    bt = _batch_tile(x.shape[0] if rows is None else rows, x.device)
     if 4 * bt * shared_floats_per_row > _MAX_SHARED_BYTES:
         bt = 4
     if 4 * bt * shared_floats_per_row > _MAX_SHARED_BYTES:
@@ -315,6 +369,56 @@ def blstm_bidi_fwd(xg, w_hh_t, *, with_cell=False):
 blstm_bidi_fwd.launches = 0
 
 
+def _check_cond_inputs(xs, aux, w_ih_t, w_hh_t, bias):
+    """Checks the conditioned layer's inputs; returns (B, S, T, F, H)."""
+    _check_stream_input('xs', xs)
+    B, T, F = xs.shape
+    if aux.dim() != 3:
+        raise ValueError(f'aux: expected (B, S, F), got {tuple(aux.shape)}')
+    S = aux.shape[1]
+    H = w_hh_t.shape[1]
+    _check('aux', aux, (B, S, F), xs.dtype, xs.device)
+    _check('w_ih_t', w_ih_t, (2, F, 4 * H), xs.dtype, xs.device)
+    _check('w_hh_t', w_hh_t, (2, H, 4 * H), xs.dtype, xs.device)
+    _check('bias', bias, (2, 4 * H), torch.float32, xs.device)
+    return B, S, T, F, H
+
+
+def blstm_fullfused_cond_fwd(xs, aux, w_ih_t, w_hh_t, bias, *,
+                             with_cell=False):
+    """One bidirectional LSTM layer over the 'mul'-conditioned rows
+    ``xs[b] * aux[b, s]``, formed in the kernel: the layer of
+    :func:`blstm_fullfused_fwd` on ``xs[:, None] * aux[:, :, None]``
+    without that (B, S, T, F) tensor.
+
+    xs: (B, T, F); aux: (B, S, F); w_ih_t: (2, F, 4H); w_hh_t: (2, H, 4H),
+    all in the storage dtype; bias: (2, 4H) float32. Returns ``(h, c)``,
+    each (B, S, T, 2H) in the storage dtype; ``c`` is None unless
+    ``with_cell``.
+    """
+    B, S, T, F, H = _check_cond_inputs(xs, aux, w_ih_t, w_hh_t, bias)
+    if xs.device.type == 'cpu':
+        return blstm_fullfused_cond_fwd_plain(xs, aux, w_ih_t, w_hh_t, bias,
+                                              with_cell=with_cell)
+    bt = _launch_tile(xs, H, 2 * H + F, (aux, w_ih_t, w_hh_t, bias),
+                      rows=B * S)
+    h = torch.empty(B * S, T, 2 * H, dtype=xs.dtype, device=xs.device)
+    c = torch.empty_like(h) if with_cell else None
+    with torch.cuda.device(xs.device):
+        err = _build.library().tssep_blstm_fullfused_cond_fwd(
+            xs.data_ptr(), xs.stride(0), xs.stride(1), F, aux.data_ptr(), S,
+            w_ih_t.data_ptr(), bias.data_ptr(), w_hh_t.data_ptr(),
+            h.data_ptr(), c.data_ptr() if with_cell else None, h.stride(0),
+            h.stride(1), B, T, H, int(xs.dtype == torch.bfloat16), bt,
+            torch.cuda.current_stream(xs.device).cuda_stream)
+    _raise_on(err, 'blstm_fullfused_cond_fwd')
+    blstm_fullfused_cond_fwd.launches += 1
+    return tuple(None if t is None else t.view(B, S, T, 2 * H) for t in (h, c))
+
+
+blstm_fullfused_cond_fwd.launches = 0
+
+
 def _check_saved(x, H, h, c, dh, dh_dtype):
     B, T = x.shape[:2]
     for name, t in (('h', h), ('c', c)):
@@ -403,3 +507,52 @@ def blstm_bidi_bwd(xg, w_hh_t, h, c, dh):
 
 
 blstm_bidi_bwd.launches = 0
+
+
+def blstm_fullfused_cond_bwd(xs, aux, w_ih_t, w_hh_t, bias, h, c, dh):
+    """The backward of :func:`blstm_fullfused_cond_fwd`.
+
+    xs, aux, w_ih_t, w_hh_t, bias as for the forward; h, c: (B, S, T, 2H),
+    the forward's outputs; dh: (B, S, T, 2H), the cotangent of h in the
+    storage dtype. Returns ``(dx, daux, dw_ih_t, dw_hh_t, db)`` in float32:
+    dx (B, T, F), summed over the speakers and both directions, then
+    rounded to the storage dtype; daux (B, S, F), rounded to the storage
+    dtype; dw_ih_t (2, F, 4H); dw_hh_t (2, H, 4H); db (2, 4H), the gradient
+    of each of the two torch biases.
+    """
+    B, S, T, F, H = _check_cond_inputs(xs, aux, w_ih_t, w_hh_t, bias)
+    for name, t in (('h', h), ('c', c), ('dh', dh)):
+        _check(name, t, (B, S, T, 2 * H), xs.dtype, xs.device)
+    if xs.device.type == 'cpu':
+        return blstm_fullfused_cond_bwd_plain(xs, aux, w_ih_t, w_hh_t, bias,
+                                              h, c, dh)
+    bt = _launch_tile(xs, H, 7 * H + F, (aux, w_ih_t, w_hh_t, bias, h, c),
+                      rows=B * S)
+    # the speakers folded into the rows (views of the contiguous h and c)
+    h, c, dh = (t.reshape(B * S, T, 2 * H) for t in (h, c, dh))
+    if dh.stride(-1) != 1:
+        raise ValueError('the last axis of dh must be contiguous')
+    w_ih = w_ih_t.transpose(1, 2).contiguous()
+    w_hh = w_hh_t.transpose(1, 2).contiguous()
+    f32 = dict(dtype=torch.float32, device=xs.device)
+    dg = torch.empty(2, B * S, T, 4 * H, **f32)        # workspace
+    dcond = torch.empty(B * S, T, F, **f32)            # workspace
+    dw = torch.empty(2, F + H + 1, 4 * H, **f32)       # [dW_ih^T; dW_hh^T; db]
+    dx = torch.empty(B, T, F, **f32)
+    daux = torch.empty(B, S, F, **f32)
+    with torch.cuda.device(xs.device):
+        err = _build.library().tssep_blstm_fullfused_cond_bwd(
+            xs.data_ptr(), xs.stride(0), xs.stride(1), F, aux.data_ptr(), S,
+            w_ih_t.data_ptr(), w_ih.data_ptr(), bias.data_ptr(),
+            w_hh_t.data_ptr(), w_hh.data_ptr(), h.data_ptr(), c.data_ptr(),
+            h.stride(0), h.stride(1), dh.data_ptr(), dh.stride(0),
+            dh.stride(1), dg.data_ptr(), dcond.data_ptr(), dw.data_ptr(),
+            dx.data_ptr(), daux.data_ptr(), B, T, H,
+            int(xs.dtype == torch.bfloat16), bt,
+            torch.cuda.current_stream(xs.device).cuda_stream)
+    _raise_on(err, 'blstm_fullfused_cond_bwd')
+    blstm_fullfused_cond_bwd.launches += 1
+    return dx, daux, dw[:, :F], dw[:, F:F + H], dw[:, F + H]
+
+
+blstm_fullfused_cond_bwd.launches = 0

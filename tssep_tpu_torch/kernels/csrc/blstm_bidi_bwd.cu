@@ -27,7 +27,7 @@ extern "C" int tssep_blstm_bidi_bwd(const void* xg, long long xg_sb, long long x
                                     const void* c, long long s_sb, long long s_st, const void* dh,
                                     long long d_sb, long long d_st, void* dg, void* dxg, void* dw,
                                     int B, int T, int H, int bf16, int bt, void* stream) {
-  return tssep::backward<false>(bf16, bt, xg, xg_sb, xg_st, 0, nullptr, nullptr, nullptr,
-                                w_hh_t, w_hh, h, c, s_sb, s_st, dh, d_sb, d_st, dg, dxg, dw,
-                                nullptr, B, T, H, stream);
+  return tssep::backward<false, false>(bf16, bt, xg, xg_sb, xg_st, 0, nullptr, 1, nullptr,
+                                       nullptr, nullptr, w_hh_t, w_hh, h, c, s_sb, s_st, dh, d_sb,
+                                       d_st, dg, dxg, dw, nullptr, B, T, H, stream);
 }

@@ -23,6 +23,6 @@ extern "C" int tssep_blstm_bidi_fwd(const void* xg, long long xg_sb, long long x
                                     const void* w_hh_t, void* h_out, void* c_out,
                                     long long o_sb, long long o_st, int B, int T, int H,
                                     int bf16, int bt, void* stream) {
-  return tssep::dispatch<false>(bf16, bt, xg, xg_sb, xg_st, 0, nullptr, nullptr, w_hh_t, h_out,
-                                c_out, o_sb, o_st, B, T, H, stream);
+  return tssep::dispatch<false, false>(bf16, bt, xg, xg_sb, xg_st, 0, nullptr, 1, nullptr,
+                                       nullptr, w_hh_t, h_out, c_out, o_sb, o_st, B, T, H, stream);
 }

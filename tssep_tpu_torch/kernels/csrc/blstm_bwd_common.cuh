@@ -1,6 +1,6 @@
-// Shared body of the two backward BLSTM kernels (blstm_fullfused_bwd.cu and
-// blstm_bidi_bwd.cu). Three grid kernels, launched one after the other on
-// one stream:
+// Shared body of the three backward BLSTM kernels (blstm_fullfused_bwd.cu,
+// blstm_fullfused_cond_bwd.cu and blstm_bidi_bwd.cu). Three grid kernels,
+// launched one after the other on one stream:
 //
 // 1. blstm_bwd_walk_kernel, the serial part. One block per (batch tile of BT
 //    rows, direction), as in the forward (blstm_common.cuh): thread j owns
@@ -17,9 +17,12 @@
 //    out[d] = A_d^T dg[d], with A_d = [x | h_prev | 1] gathered row by row,
 //    gives dW_ih^T, dW_hh^T and db in one launch. Each output tile sums all
 //    B*T rows itself in a fixed order: no atomics, the same bits every run.
-// 3. dx_kernel (fused form only): dx = sum_d round(dg[d] W_ih,d), each
+//    In the conditioned form (COND) the x rows are the conditioned rows,
+//    formed in the tile loader as the walk forms them (row_value).
+// 3. dx_kernel (fused forms only): dx = sum_d round(dg[d] W_ih,d), each
 //    direction's product rounded to the storage type and the two summed in
-//    f32, as the TPU kernel wrote dx per direction in the storage type.
+//    f32, as the TPU kernel wrote dx per direction in the storage type; the
+//    conditioned form sums the two unrounded (blstm_fullfused_cond_bwd.cu).
 //
 // All products run on the CUDA cores in f32 (the TPU backward's products
 // take f32 operands too); the tiled ones are the classic 64 x 64 shared-
@@ -56,6 +59,7 @@ __device__ __forceinline__ void accumulate1(float (&acc)[BT], const float* src,
 
 // FUSED: `in` is x (B, T, F) with strides (in_sb, in_st, 1); the gates are
 //        bias (2, 4H) f32 + x_t W_ih^T (w_ih_t (2, F, 4H)) + h_prev W_hh^T.
+//        With COND, x_t is the conditioned row of xs and aux (row_value).
 // else:  `in` is xg (B, T, 8H) with strides (in_sb, in_st, 1), direction d's
 //        gate inputs in columns [4H d, 4H (d + 1)); dxg (B, T, 8H),
 //        contiguous, receives the gate gradients rounded to T.
@@ -64,10 +68,10 @@ __device__ __forceinline__ void accumulate1(float (&acc)[BT], const float* src,
 //        in TD, strides (d_sb, d_st, 1); dg (2, B, T, 4H) f32, contiguous.
 //        Direction 0 walked t = 0 .. T-1 forward, so its step before t is
 //        t - 1; direction 1 walked T-1 .. 0, so its step before t is t + 1.
-template <typename T, typename TD, int BT, bool FUSED>
+template <typename T, typename TD, int BT, bool FUSED, bool COND>
 __global__ void __launch_bounds__(512)
 blstm_bwd_walk_kernel(const T* __restrict__ in, long long in_sb, long long in_st, int F,
-                      const T* __restrict__ w_ih_t, const float* __restrict__ bias,
+                      const T* __restrict__ aux, int S, const T* __restrict__ w_ih_t, const float* __restrict__ bias,
                       const T* __restrict__ w_hh_t, const T* __restrict__ w_hh,
                       const T* __restrict__ h, const T* __restrict__ c, long long s_sb,
                       long long s_st, const TD* __restrict__ dh, long long d_sb, long long d_st,
@@ -103,14 +107,7 @@ blstm_bwd_walk_kernel(const T* __restrict__ in, long long in_sb, long long in_st
       hp_s[k * BT + r] =
           (has_prev && b < B) ? to_f32(h[b * s_sb + tp * s_st + dir * H + k]) : 0.f;
     }
-    if constexpr (FUSED) {
-      for (int i = threadIdx.x; i < F * BT; i += blockDim.x) {
-        const int r = i / F;
-        const int k = i - r * F;
-        const int b = b0 + r;
-        x_s[k * BT + r] = b < B ? to_f32(in[b * in_sb + t * in_st + k]) : 0.f;
-      }
-    }
+    if constexpr (FUSED) load_rows<T, BT, COND>(x_s, in, in_sb, in_st, aux, S, F, b0, B, t);
     __syncthreads();  // hp_s and x_s are complete
 
     if (active) {
@@ -186,13 +183,14 @@ constexpr int GM = 64, GN = 64, GK = 16;  // tile of the two products, 256 threa
 
 // out[d] (M, N) = sum over the B*T rows k = (b, t) of A_d(k, m) dg[d](k, n),
 // N = 4H, M = F + H + with_bias:
-//   m < F:          x[b, t, m]                       (F = 0 for the bidi form)
+//   m < F:          x[b, t, m], or the conditioned row's element with COND
+//                   (F = 0 for the bidi form)
 //   m < F + H:      h[b, t_prev, d H + m - F], zero at the walk's first step
 //   m == F + H:     1, so that row F + H of out is db = sum_k dg.
-template <typename T>
+template <typename T, bool COND>
 __global__ void __launch_bounds__(256)
 wgrad_kernel(const T* __restrict__ x, long long x_sb, long long x_st, int F,
-             const T* __restrict__ h, long long s_sb, long long s_st, int H, int with_bias,
+             const T* __restrict__ aux, int S, const T* __restrict__ h, long long s_sb, long long s_st, int H, int with_bias,
              const float* __restrict__ dg, float* __restrict__ out, int B, int steps) {
   __shared__ __align__(16) float As[GK][GM];
   __shared__ __align__(16) float Bs[GK][GN];
@@ -217,7 +215,7 @@ wgrad_kernel(const T* __restrict__ x, long long x_sb, long long x_st, int F,
         const int b = (int)(k / steps);
         const int t = (int)(k - (long long)b * steps);
         if (m < F) {
-          v = to_f32(x[b * x_sb + t * x_st + m]);
+          v = row_value<T, COND>(x, x_sb, x_st, aux, S, F, b, t, m);
         } else if (m < F + H) {
           const int tp = d ? t + 1 : t - 1;
           if (tp >= 0 && tp < steps) v = to_f32(h[b * s_sb + tp * s_st + d * H + (m - F)]);
@@ -267,8 +265,9 @@ wgrad_kernel(const T* __restrict__ x, long long x_sb, long long x_st, int F,
 }
 
 // dx (K, F) f32 = sum_d round_T(dg[d] (K, N) @ w_ih[d] (N, F)), N = 4H,
-// w_ih (2, 4H, F) in T: the torch layout of weight_ih_l0.
-template <typename T>
+// w_ih (2, 4H, F) in T: the torch layout of weight_ih_l0. Without
+// ROUND_EACH the two directions' products are summed unrounded.
+template <typename T, bool ROUND_EACH>
 __global__ void __launch_bounds__(256)
 dx_kernel(const float* __restrict__ dg, const T* __restrict__ w_ih, float* __restrict__ dx,
           long long K, int F, int N) {
@@ -313,7 +312,8 @@ dx_kernel(const float* __restrict__ dg, const T* __restrict__ w_ih, float* __res
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) total[i][q] += to_f32(from_f32<T>(acc[i][q]));
+      for (int q = 0; q < 4; ++q)
+        total[i][q] += ROUND_EACH ? to_f32(from_f32<T>(acc[i][q])) : acc[i][q];
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -327,8 +327,9 @@ dx_kernel(const float* __restrict__ dg, const T* __restrict__ w_ih, float* __res
 }
 
 // Launches the walk on `stream`; returns the launch's cudaError_t.
-template <typename T, int BT, bool FUSED>
-int launch_walk(const void* in, long long in_sb, long long in_st, int F, const void* w_ih_t,
+template <typename T, int BT, bool FUSED, bool COND>
+int launch_walk(const void* in, long long in_sb, long long in_st, int F, const void* aux, int S,
+                const void* w_ih_t,
                 const void* bias, const void* w_hh_t, const void* w_hh, const void* h,
                 const void* c, long long s_sb, long long s_st, const void* dh, long long d_sb,
                 long long d_st, void* dg, void* dxg, int B, int steps, int H,
@@ -337,52 +338,56 @@ int launch_walk(const void* in, long long in_sb, long long in_st, int F, const v
   const dim3 grid((B + BT - 1) / BT, 2);
   const int threads = ((H + 31) / 32) * 32;
   const size_t smem = sizeof(float) * BT * (7 * H + (FUSED ? F : 0));
-  auto kernel = blstm_bwd_walk_kernel<T, TD, BT, FUSED>;
+  auto kernel = blstm_bwd_walk_kernel<T, TD, BT, FUSED, COND>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(in), in_sb, in_st, F, static_cast<const T*>(w_ih_t),
-      static_cast<const float*>(bias), static_cast<const T*>(w_hh_t),
-      static_cast<const T*>(w_hh), static_cast<const T*>(h), static_cast<const T*>(c), s_sb,
+      static_cast<const T*>(in), in_sb, in_st, F, static_cast<const T*>(aux), S,
+      static_cast<const T*>(w_ih_t), static_cast<const float*>(bias),
+      static_cast<const T*>(w_hh_t), static_cast<const T*>(w_hh), static_cast<const T*>(h), static_cast<const T*>(c), s_sb,
       s_st, static_cast<const TD*>(dh), d_sb, d_st, static_cast<float*>(dg),
       static_cast<T*>(dxg), B, steps, H);
   return (int)cudaGetLastError();
 }
 
-// Everything after the walk: the weight and bias sums, and dx (FUSED).
-template <typename T, bool FUSED>
-int launch_sums(const void* x, long long x_sb, long long x_st, int F, const void* w_ih,
-                const void* h, long long s_sb, long long s_st, const void* dg, void* dw,
-                void* dx, int B, int steps, int H, cudaStream_t stream) {
+// Everything after the walk: the weight and bias sums, and (FUSED) dx, or
+// with COND the unrounded dx of the conditioned rows.
+template <typename T, bool FUSED, bool COND>
+int launch_sums(const void* x, long long x_sb, long long x_st, int F, const void* aux, int S,
+                const void* w_ih, const void* h, long long s_sb, long long s_st, const void* dg,
+                void* dw, void* dx, int B, int steps, int H, cudaStream_t stream) {
   const int M = F + H + (FUSED ? 1 : 0);
   const dim3 wgrid((4 * H + GN - 1) / GN, (M + GM - 1) / GM, 2);
-  wgrad_kernel<T><<<wgrid, 256, 0, stream>>>(
-      static_cast<const T*>(x), x_sb, x_st, F, static_cast<const T*>(h), s_sb, s_st, H,
-      FUSED ? 1 : 0, static_cast<const float*>(dg), static_cast<float*>(dw), B, steps);
+  wgrad_kernel<T, COND><<<wgrid, 256, 0, stream>>>(
+      static_cast<const T*>(x), x_sb, x_st, F, static_cast<const T*>(aux), S,
+      static_cast<const T*>(h), s_sb, s_st, H, FUSED ? 1 : 0, static_cast<const float*>(dg),
+      static_cast<float*>(dw), B, steps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !FUSED) return (int)err;
   const long long K = (long long)B * steps;
   const dim3 xgrid((unsigned)((K + GM - 1) / GM), (F + GN - 1) / GN);
-  dx_kernel<T><<<xgrid, 256, 0, stream>>>(static_cast<const float*>(dg),
-                                          static_cast<const T*>(w_ih), static_cast<float*>(dx),
-                                          K, F, 4 * H);
+  dx_kernel<T, !COND><<<xgrid, 256, 0, stream>>>(static_cast<const float*>(dg),
+                                                 static_cast<const T*>(w_ih),
+                                                 static_cast<float*>(dx), K, F, 4 * H);
   return (int)cudaGetLastError();
 }
 
 // One layer's backward: the walk, then the sums. bf16 picks the storage
-// type (0 float, 1 bf16), bt the tile height (4 or 16).
-template <bool FUSED>
+// type (0 float, 1 bf16), bt the tile height (4 or 16). With COND, B counts
+// the conditioned rows and dx receives their unrounded gradient.
+template <bool FUSED, bool COND>
 int backward(int bf16, int bt, const void* in, long long in_sb, long long in_st, int F,
-             const void* w_ih_t, const void* w_ih, const void* bias, const void* w_hh_t,
-             const void* w_hh, const void* h, const void* c, long long s_sb, long long s_st,
-             const void* dh, long long d_sb, long long d_st, void* dg, void* dxg, void* dw,
-             void* dx, int B, int steps, int H, void* stream_) {
+             const void* aux, int S, const void* w_ih_t, const void* w_ih, const void* bias,
+             const void* w_hh_t, const void* w_hh, const void* h, const void* c, long long s_sb,
+             long long s_st, const void* dh, long long d_sb, long long d_st, void* dg, void* dxg,
+             void* dw, void* dx, int B, int steps, int H, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   int err = (int)cudaErrorInvalidValue;
-#define TSSEP_WALK(T, BT)                                                                    \
-  err = launch_walk<T, BT, FUSED>(in, in_sb, in_st, F, w_ih_t, bias, w_hh_t, w_hh, h, c, s_sb, \
-                                  s_st, dh, d_sb, d_st, dg, dxg, B, steps, H, stream)
+#define TSSEP_WALK(T, BT)                                                                     \
+  err = launch_walk<T, BT, FUSED, COND>(in, in_sb, in_st, F, aux, S, w_ih_t, bias, w_hh_t, w_hh, \
+                                        h, c, s_sb, s_st, dh, d_sb, d_st, dg, dxg, B, steps, H,  \
+                                        stream)
   if (bf16) {
     if (bt == 16) TSSEP_WALK(__nv_bfloat16, 16);
     if (bt == 4) TSSEP_WALK(__nv_bfloat16, 4);
@@ -394,10 +399,11 @@ int backward(int bf16, int bt, const void* in, long long in_sb, long long in_st,
   if (err != cudaSuccess) return err;
   // the fused form's x is `in`; the bidi form has no x rows in its sums
   if (bf16)
-    return launch_sums<__nv_bfloat16, FUSED>(in, in_sb, in_st, FUSED ? F : 0, w_ih, h, s_sb,
-                                             s_st, dg, dw, dx, B, steps, H, stream);
-  return launch_sums<float, FUSED>(in, in_sb, in_st, FUSED ? F : 0, w_ih, h, s_sb, s_st, dg,
-                                   dw, dx, B, steps, H, stream);
+    return launch_sums<__nv_bfloat16, FUSED, COND>(in, in_sb, in_st, FUSED ? F : 0, aux, S,
+                                                   w_ih, h, s_sb, s_st, dg, dw, dx, B, steps,
+                                                   H, stream);
+  return launch_sums<float, FUSED, COND>(in, in_sb, in_st, FUSED ? F : 0, aux, S, w_ih, h,
+                                         s_sb, s_st, dg, dw, dx, B, steps, H, stream);
 }
 
 }  // namespace

@@ -1,5 +1,6 @@
-// Shared body of the two forward BLSTM kernels (blstm_fullfused_fwd.cu and
-// blstm_bidi_fwd.cu): one bidirectional LSTM layer, gate order i, f, g, o
+// Shared body of the three forward BLSTM kernels (blstm_fullfused_fwd.cu,
+// blstm_fullfused_cond_fwd.cu and blstm_bidi_fwd.cu): one bidirectional
+// LSTM layer, gate order i, f, g, o
 // (torch layout), carries and accumulation in f32, streamed tensors in the
 // storage type T (float or bf16).
 //
@@ -38,6 +39,37 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 
+// Element k of input row b at time t. Plain: in[b, t, k]. COND ('mul'
+// conditioning formed on the fly): row b = b_x S + s is speaker s of batch
+// row b_x, in[b_x, t, k] * aux[b, k] with aux (B S, F) contiguous, the
+// product rounded to T as the materialized xs[:, None] * aux[:, :, None]
+// is (one rounding: the product of two bf16 values is exact in f32).
+template <typename T, bool COND>
+__device__ __forceinline__ float row_value(const T* __restrict__ in, long long in_sb,
+                                           long long in_st, const T* __restrict__ aux, int S,
+                                           int F, int b, int t, int k) {
+  if constexpr (COND) {
+    const float xv = to_f32(in[(b / S) * in_sb + t * in_st + k]);
+    return to_f32(from_f32<T>(xv * to_f32(aux[(size_t)b * F + k])));
+  } else {
+    return to_f32(in[b * in_sb + t * in_st + k]);
+  }
+}
+
+// Stages the input rows b0 .. b0 + BT - 1 at time t into x_s (F, BT) f32,
+// coalesced along k; rows past B read as zeros and are never stored.
+template <typename T, int BT, bool COND>
+__device__ __forceinline__ void load_rows(float* x_s, const T* __restrict__ in, long long in_sb,
+                                          long long in_st, const T* __restrict__ aux, int S,
+                                          int F, int b0, int B, int t) {
+  for (int i = threadIdx.x; i < F * BT; i += blockDim.x) {
+    const int r = i / F;
+    const int k = i - r * F;
+    const int b = b0 + r;
+    x_s[k * BT + r] = b < B ? row_value<T, COND>(in, in_sb, in_st, aux, S, F, b, t, k) : 0.f;
+  }
+}
+
 // Adds sum_k src[k, r] * w[k * G + g * H] to acc[g][r]: one column of the
 // gate matrix for each of the four gates, all BT rows. src is (K, BT) f32 in
 // shared memory; w points at column j of a (K, 4H) matrix in global memory.
@@ -69,16 +101,18 @@ __device__ __forceinline__ void accumulate(float (&acc)[4][BT], const float* src
 
 // FUSED: `in` is x (B, T, F) with strides (in_sb, in_st, 1); the gates start
 //        from bias (2, 4H) f32 plus x_t @ W_ih^T computed here (w_ih_t is
-//        (2, F, 4H)).
+//        (2, F, 4H)). With COND the B rows are B / S batch rows times S
+//        speakers, `in` is xs (B / S, T, F) and aux (B, F) (row_value).
 // else:  `in` is xg (B, T, 8H) with strides (in_sb, in_st, 1): direction d's
 //        precomputed input gates are columns [4H d, 4H (d + 1)).
-// Both:  w_hh_t (2, H, 4H); h_out, c_out (B, T, 2H) with strides
+// All:   w_hh_t (2, H, 4H); h_out, c_out (B, T, 2H) with strides
 //        (out_sb, out_st, 1), forward direction in [0, H), reverse in [H, 2H),
 //        both in original time order. c_out may be null.
-template <typename T, int BT, bool FUSED>
+template <typename T, int BT, bool FUSED, bool COND>
 __global__ void __launch_bounds__(512)
 blstm_fwd_kernel(const T* __restrict__ in, long long in_sb, long long in_st, int F,
-                 const T* __restrict__ w_ih_t, const float* __restrict__ bias,
+                 const T* __restrict__ aux, int S, const T* __restrict__ w_ih_t,
+                 const float* __restrict__ bias,
                  const T* __restrict__ w_hh_t, T* __restrict__ h_out, T* __restrict__ c_out,
                  long long out_sb, long long out_st, int B, int steps, int H) {
   extern __shared__ float4 smem4[];
@@ -98,15 +132,7 @@ blstm_fwd_kernel(const T* __restrict__ in, long long in_sb, long long in_st, int
 
   for (int s = 0; s < steps; ++s) {
     const int t = dir ? steps - 1 - s : s;
-    if constexpr (FUSED) {
-      // coalesced along k; rows past B read as zeros and are never stored
-      for (int i = threadIdx.x; i < F * BT; i += blockDim.x) {
-        const int r = i / F;
-        const int k = i - r * F;
-        const int b = b0 + r;
-        x_s[k * BT + r] = b < B ? to_f32(in[b * in_sb + t * in_st + k]) : 0.f;
-      }
-    }
+    if constexpr (FUSED) load_rows<T, BT, COND>(x_s, in, in_sb, in_st, aux, S, F, b0, B, t);
     __syncthreads();  // x_s and the previous step's h_s are complete
 
     float acc[4][BT];
@@ -155,32 +181,34 @@ blstm_fwd_kernel(const T* __restrict__ in, long long in_sb, long long in_st, int
 }
 
 // Launches one layer on `stream`; returns the launch's cudaError_t.
-template <typename T, int BT, bool FUSED>
-int launch(const void* in, long long in_sb, long long in_st, int F, const void* w_ih_t,
-           const void* bias, const void* w_hh_t, void* h_out, void* c_out, long long out_sb,
-           long long out_st, int B, int steps, int H, void* stream) {
+template <typename T, int BT, bool FUSED, bool COND>
+int launch(const void* in, long long in_sb, long long in_st, int F, const void* aux, int S,
+           const void* w_ih_t, const void* bias, const void* w_hh_t, void* h_out, void* c_out,
+           long long out_sb, long long out_st, int B, int steps, int H, void* stream) {
   const dim3 grid((B + BT - 1) / BT, 2);
   const int threads = ((H + 31) / 32) * 32;
   const size_t smem = sizeof(float) * BT * (2 * H + (FUSED ? F : 0));
-  auto kernel = blstm_fwd_kernel<T, BT, FUSED>;
+  auto kernel = blstm_fwd_kernel<T, BT, FUSED, COND>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(in), in_sb, in_st, F, static_cast<const T*>(w_ih_t),
-      static_cast<const float*>(bias), static_cast<const T*>(w_hh_t), static_cast<T*>(h_out),
-      static_cast<T*>(c_out), out_sb, out_st, B, steps, H);
+      static_cast<const T*>(in), in_sb, in_st, F, static_cast<const T*>(aux), S,
+      static_cast<const T*>(w_ih_t), static_cast<const float*>(bias),
+      static_cast<const T*>(w_hh_t), static_cast<T*>(h_out), static_cast<T*>(c_out), out_sb,
+      out_st, B, steps, H);
   return (int)cudaGetLastError();
 }
 
 // Picks the storage type (0 float, 1 bf16) and the tile height (4 or 16).
-template <bool FUSED>
+template <bool FUSED, bool COND>
 int dispatch(int bf16, int bt, const void* in, long long in_sb, long long in_st, int F,
-             const void* w_ih_t, const void* bias, const void* w_hh_t, void* h_out, void* c_out,
-             long long out_sb, long long out_st, int B, int steps, int H, void* stream) {
-#define TSSEP_LAUNCH(T, BT)                                                                   \
-  return launch<T, BT, FUSED>(in, in_sb, in_st, F, w_ih_t, bias, w_hh_t, h_out, c_out, out_sb, \
-                              out_st, B, steps, H, stream)
+             const void* aux, int S, const void* w_ih_t, const void* bias, const void* w_hh_t,
+             void* h_out, void* c_out, long long out_sb, long long out_st, int B, int steps,
+             int H, void* stream) {
+#define TSSEP_LAUNCH(T, BT)                                                                 \
+  return launch<T, BT, FUSED, COND>(in, in_sb, in_st, F, aux, S, w_ih_t, bias, w_hh_t, h_out, \
+                                    c_out, out_sb, out_st, B, steps, H, stream)
   if (bf16) {
     if (bt == 16) TSSEP_LAUNCH(__nv_bfloat16, 16);
     if (bt == 4) TSSEP_LAUNCH(__nv_bfloat16, 4);

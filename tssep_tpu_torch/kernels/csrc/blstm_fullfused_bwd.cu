@@ -31,7 +31,7 @@ extern "C" int tssep_blstm_fullfused_bwd(const void* x, long long x_sb, long lon
                                          const void* dh, long long d_sb, long long d_st,
                                          void* dg, void* dw, void* dx, int B, int T, int H,
                                          int bf16, int bt, void* stream) {
-  return tssep::backward<true>(bf16, bt, x, x_sb, x_st, F, w_ih_t, w_ih, bias, w_hh_t, w_hh, h,
-                               c, s_sb, s_st, dh, d_sb, d_st, dg, nullptr, dw, dx, B, T, H,
-                               stream);
+  return tssep::backward<true, false>(bf16, bt, x, x_sb, x_st, F, nullptr, 1, w_ih_t, w_ih,
+                                      bias, w_hh_t, w_hh, h, c, s_sb, s_st, dh, d_sb, d_st, dg,
+                                      nullptr, dw, dx, B, T, H, stream);
 }

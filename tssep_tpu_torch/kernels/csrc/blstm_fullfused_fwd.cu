@@ -24,6 +24,6 @@ extern "C" int tssep_blstm_fullfused_fwd(const void* x, long long x_sb, long lon
                                          const void* w_hh_t, void* h_out, void* c_out,
                                          long long o_sb, long long o_st, int B, int T, int H,
                                          int bf16, int bt, void* stream) {
-  return tssep::dispatch<true>(bf16, bt, x, x_sb, x_st, F, w_ih_t, bias, w_hh_t, h_out, c_out,
-                               o_sb, o_st, B, T, H, stream);
+  return tssep::dispatch<true, false>(bf16, bt, x, x_sb, x_st, F, nullptr, 1, w_ih_t, bias,
+                                      w_hh_t, h_out, c_out, o_sb, o_st, B, T, H, stream);
 }

@@ -5,8 +5,16 @@ The forward of ``MaskEstimator``, for serving and for training: shared
 elementwise or 'cat' concatenation) -> per-speaker BLSTM stack with the
 speakers folded into the batch -> optional TS-VAD cross-speaker stacking
 before the last BLSTM -> linear head -> per-speaker (mask, time, frequency)
-logits -> sigmoid, with the optional ``explicit_vad`` gate. In training,
-dropout between the post-net layers draws from the caller's generator.
+logits, averaged over ``num_averaged_permutations`` cyclic speaker orders
+-> sigmoid, with the optional ``explicit_vad`` gate. In training, dropout
+between the post-net layers draws from the caller's generator.
+
+``cond_fuse`` (JAX ``TSSEP_PALLAS_CONDFUSE``) runs the 'mul' conditioning
+and the first post-net layer as one conditioned layer
+(``RNNP.forward_conditioned``), where JAX's condition for it holds; else
+the conditioned (B, S, T, F) tensor is materialized. ``fullfuse`` (JAX
+``TSSEP_PALLAS_FULLFUSE``) picks the BLSTM kernels of every RNNP
+(``nn/rnnp.py``).
 
 From ``pre_net`` on, activations are kept in the storage dtype; the head and
 its outputs are float32.
@@ -36,6 +44,14 @@ class Output:
     vad_logit: typing.Any = None
 
 
+def _permutation_trial_indices(speakers: int, trials: int, device):
+    """Cyclic-shift speaker index expansion and its inverse (JAX
+    ``_permutation_trial_indices``, ``tssep_tpu/nn/estimator.py:134``)."""
+    s = torch.arange(speakers, device=device)
+    idx = ((s[:, None] + s[None, :]) % speakers)[:trials].reshape(-1)
+    return idx, torch.argsort(idx, stable=True)
+
+
 def _not_ported(what):
     return NotImplementedError(f'MaskEstimator: {what} is not ported yet')
 
@@ -51,15 +67,17 @@ class MaskEstimator(nn.Module):
                  output_resolution='tf', random_speaker_order=True,
                  num_averaged_permutations=1, input_normalizer=None,
                  aux_normalizer=None, explicit_vad=False,
-                 storage_dtype=torch.bfloat16, device='cuda'):
+                 storage_dtype=torch.bfloat16, cond_fuse=False, fullfuse=True,
+                 device='cuda'):
         super().__init__()
         device = resolve_device(device)
         if aux_net is not None:
             raise _not_ported('aux_net')
         if input_normalizer is not None or aux_normalizer is not None:
             raise _not_ported('an input or aux normalizer')
-        if num_averaged_permutations != 1:
-            raise _not_ported('num_averaged_permutations > 1')
+        if num_averaged_permutations < 1:
+            raise ValueError(f'num_averaged_permutations='
+                             f'{num_averaged_permutations}')
         if output_resolution == 't' and explicit_vad:
             raise ValueError("explicit_vad needs output_resolution='tf'")
         if ts_vad and not 2 < ts_vad < 20:
@@ -79,9 +97,11 @@ class MaskEstimator(nn.Module):
         self.storage_dtype = storage_dtype
         self.dropout = dropout
         self.ts_factor = int(ts_vad) if ts_vad else 1
+        self.num_averaged_permutations = num_averaged_permutations
+        self.cond_fuse = cond_fuse
 
         rnnp = dict(dropout=dropout, storage_dtype=storage_dtype,
-                    device=device)
+                    fullfuse=fullfuse, device=device)
         if pre_net == 'RNNP':
             self.pre_net = RNNP(idim, elayers=1, cdim=units, hdim=odim, **rnnp)
         elif pre_net in (None, False):
@@ -131,6 +151,15 @@ class MaskEstimator(nn.Module):
     def num_params(self):
         return sum(p.numel() for p in self.parameters())
 
+    def conditioned_first_layer(self):
+        """Whether ``cond_fuse`` runs the conditioning and ``birnn0`` as one
+        conditioned layer: JAX's condition (``tssep_tpu/nn/estimator.py:
+        367-372``), 'mul', not a single layer that stacks the speakers
+        first, and a one-layer ``birnn0`` (always bidirectional here)."""
+        return (self.cond_fuse and self.combination == 'mul'
+                and not (self.layers == 1 and self.ts_vad)
+                and self.post_net.birnn0.elayers == 1)
+
     def reshape_head(self, logit, S, T):
         """Post-net linear output -> (B', S, nmask, T, Fh), float32."""
         logit = logit.float()
@@ -173,17 +202,41 @@ class MaskEstimator(nn.Module):
         xs = xs.to(self.storage_dtype)
         aux = aux.to(self.storage_dtype)
 
-        if self.combination == 'mul':
-            h = xs[:, None, :, :] * aux[:, :, None, :]
+        trials = self.num_averaged_permutations
+        if trials > 1:
+            idx, revert_idx = _permutation_trial_indices(S, trials,
+                                                         xs.device)
+        first_layer = 0
+        if self.conditioned_first_layer():
+            # the trials expand aux, which is expanding the product
+            if trials > 1:
+                aux_c = aux[:, idx].reshape(B * trials, S, aux.shape[-1])
+                xs_c = xs[:, None].expand(B, trials, *xs.shape[1:]).reshape(
+                    B * trials, *xs.shape[1:])
+            else:
+                xs_c, aux_c = xs, aux
+            h = self.post_net.birnn0.forward_conditioned(xs_c, aux_c)
+            if self.layers > 1:
+                if training:
+                    h = inverted_dropout(h, self.dropout, generator)
+                h = torch.tanh(h)
+            first_layer = 1
         else:
-            h = torch.cat([xs[:, None].expand(B, S, T, xs.shape[-1]),
-                           aux[:, :, None, :].expand(B, S, T, aux.shape[-1])],
-                          dim=-1)                 # (B, S, T, F')
+            if self.combination == 'mul':
+                h = xs[:, None, :, :] * aux[:, :, None, :]
+            else:
+                h = torch.cat(
+                    [xs[:, None].expand(B, S, T, xs.shape[-1]),
+                     aux[:, :, None, :].expand(B, S, T, aux.shape[-1])],
+                    dim=-1)                       # (B, S, T, F')
+            if trials > 1:                        # (B trials, S, T, F')
+                h = h[:, idx].reshape(B * trials, S, *h.shape[2:])
 
-        for l in range(self.layers):
+        for l in range(first_layer, self.layers):
             if l == self.layers - 1 and self.ts_vad:
                 # cross-speaker stacking: (B, S, T, F) -> (B, 1, T, S*F)
-                h = h.transpose(1, 2).reshape(B, T, 1, -1).transpose(1, 2)
+                h = h.transpose(1, 2).reshape(h.shape[0], T, 1,
+                                              -1).transpose(1, 2)
             h = getattr(self.post_net, f'birnn{l}')(h, generator, training)
             if l < self.layers - 1:
                 if training:
@@ -194,6 +247,11 @@ class MaskEstimator(nn.Module):
         logit = nn.functional.linear(h, lin.weight.to(h.dtype),
                                      lin.bias.to(h.dtype))
         logit = self.reshape_head(logit, S, T)
+
+        if trials > 1:                            # average the trials
+            logit = logit.reshape(B, trials * S, *logit.shape[2:])
+            logit = logit[:, revert_idx].reshape(
+                B, S, trials, *logit.shape[2:]).mean(dim=2)
 
         if perm is not None:
             iperm = perm.argsort(-1)

@@ -7,15 +7,28 @@ batch axis). Parameters keep torch's names and layouts (``weight_ih_l0`` is
 by name.
 
 Every layer runs through the kernels of ``tssep_tpu_torch.kernels.blstm``,
-chosen as ``blstm_apply`` chooses with its TPU defaults
-(``tssep_tpu/nn/rnnp.py:311-342``): input width up to ``FULLFUSE_MAX_INPUT``
-goes to ``blstm_fullfused_fwd``, wider goes to ``blstm_bidi_fwd`` with the
-input projection as one matrix product outside. Where a gradient is wanted,
-the layer is a ``torch.autograd.Function`` whose backward is the matching
-backward kernel: ``BLSTMLayerFullFused`` (``blstm_layer_fullfused``, JAX
-:1052-1195) and ``BLSTMLayerFused`` (``blstm_layer_fused``, JAX :681-783).
-Both take the layer's float32 master parameters, cast them inside, and
-return float32 gradients for all eight of them, as JAX's custom VJPs do.
+chosen as ``blstm_apply`` chooses (``tssep_tpu/nn/rnnp.py:311-342``). With
+``fullfuse`` (the TPU default, ``TSSEP_PALLAS_FULLFUSE``), input width up to
+``FULLFUSE_MAX_INPUT`` goes to ``blstm_fullfused_fwd``, wider goes to
+``blstm_bidi_fwd`` with the input projection as one matrix product outside.
+Where a gradient is wanted, the layer is a ``torch.autograd.Function`` whose
+backward is the matching backward kernel: ``BLSTMLayerFullFused``
+(``blstm_layer_fullfused``, JAX :1052-1195) and ``BLSTMLayerFused``
+(``blstm_layer_fused``, JAX :681-783). Both take the layer's float32 master
+parameters, cast them inside, and return float32 gradients for all eight
+of them, as JAX's custom VJPs do.
+
+Without ``fullfuse`` every layer goes the way of ``blstm_apply_fused_bidi``
+(JAX ``kernels/blstm.py:615``): the input projection in autograd, then
+``BLSTMBidiCore`` (JAX ``_bi_core``, backward ``_bi_core_bwd`` :555) over the
+gate inputs xg, whose backward kernel ``blstm_bidi_bwd`` gives dxg in the
+storage dtype and dW_hh in float32.
+
+``RNNP.forward_conditioned`` runs a one-layer block on the 'mul'-conditioned
+input ``xs[:, None] * aux[:, :, None]`` through ``blstm_fullfused_cond_fwd``
+and, for a gradient, ``BLSTMLayerFullFusedCond`` (JAX
+``blstm_layer_fullfused_cond``, :1923-2044), which forms the product inside
+the kernels and never writes it.
 
 No remat: the forward keeps x, h and c of every layer for its backward.
 JAX wraps the folded layers in ``jax.checkpoint`` to fit a 16 GB TPU; on an
@@ -32,13 +45,15 @@ from torch import nn
 
 from tssep_tpu_torch.kernels.blstm import (blstm_bidi_bwd, blstm_bidi_fwd,
                                            blstm_fullfused_bwd,
+                                           blstm_fullfused_cond_bwd,
+                                           blstm_fullfused_cond_fwd,
                                            blstm_fullfused_fwd)
 from tssep_tpu_torch.nn.init import linear_init_, lstm_init_
 from tssep_tpu_torch.utils.device import resolve_device
 
 __all__ = ['BLSTM', 'RNNP', 'blstm_apply', 'BLSTMLayerFullFused',
-           'BLSTMLayerFused', 'FULLFUSE_MAX_INPUT', 'PARAM_NAMES',
-           'inverted_dropout']
+           'BLSTMLayerFused', 'BLSTMLayerFullFusedCond', 'BLSTMBidiCore',
+           'FULLFUSE_MAX_INPUT', 'PARAM_NAMES', 'inverted_dropout']
 
 #: Widest input the fully fused kernel takes (``tssep_tpu/nn/rnnp.py:286``).
 FULLFUSE_MAX_INPUT = 2048
@@ -69,6 +84,10 @@ class BLSTM(nn.Module):
                     torch.zeros(shape, device=device)))
 
 
+def _layer_params(layer):
+    return tuple(getattr(layer, name) for name in PARAM_NAMES)
+
+
 def _stacked(params):
     """The eight tensors in ``PARAM_NAMES`` order -> (w_ih, w_hh, bias),
     each stacked over the two directions: (2, 4H, I), (2, 4H, H) float32
@@ -97,14 +116,20 @@ def _fullfused_prep(x, params, storage_dtype):
             bias.contiguous())
 
 
-def _bidi_prep(x, params, storage_dtype):
-    """``_bidi_prep``: both directions' projections as one product, gates of
-    the forward direction in [..., :4H], of the reverse one in [..., 4H:]."""
-    w_ih, w_hh, bias = _stacked(params)
-    xs = x.to(storage_dtype)
-    xg = torch.nn.functional.linear(
-        xs, w_ih.reshape(-1, w_ih.shape[-1]).to(storage_dtype),
+def _projection(x, w_ih, bias, storage_dtype):
+    """Both directions' input projections as one product in the storage
+    dtype, gates of the forward direction in [..., :4H], of the reverse one
+    in [..., 4H:]."""
+    return torch.nn.functional.linear(
+        x.to(storage_dtype),
+        w_ih.reshape(-1, w_ih.shape[-1]).to(storage_dtype),
         bias.reshape(-1).to(storage_dtype))
+
+
+def _bidi_prep(x, params, storage_dtype):
+    """``_bidi_prep``: xg, the float32 w_ih and the cast w_hh_t."""
+    w_ih, w_hh, bias = _stacked(params)
+    xg = _projection(x, w_ih, bias, storage_dtype)
     return xg, w_ih, w_hh.transpose(1, 2).to(storage_dtype).contiguous()
 
 
@@ -165,17 +190,84 @@ class BLSTMLayerFused(torch.autograd.Function):
             None,)
 
 
-def blstm_apply(layer: BLSTM, x, storage_dtype):
+class BLSTMLayerFullFusedCond(torch.autograd.Function):
+    """The 'mul'-conditioned layer through ``blstm_fullfused_cond_fwd`` /
+    ``blstm_fullfused_cond_bwd`` (JAX ``blstm_layer_fullfused_cond``).
+    ``apply(xs, aux, *params, storage_dtype)`` with xs (B, T, F), aux
+    (B, S, F) and ``params`` in ``PARAM_NAMES`` order -> h (B, S, T, 2H).
+    Returns dx, daux and float32 gradients for all eight parameters."""
+
+    @staticmethod
+    def forward(ctx, xs, aux, *args):
+        *params, storage_dtype = args
+        x, w_ih_t, w_hh_t, bias = _fullfused_prep(xs, params, storage_dtype)
+        a = aux.to(storage_dtype).contiguous()
+        h, c = blstm_fullfused_cond_fwd(x, a, w_ih_t, w_hh_t, bias,
+                                        with_cell=True)
+        ctx.save_for_backward(x, a, w_ih_t, w_hh_t, bias, h, c)
+        ctx.dtypes = xs.dtype, aux.dtype
+        return h
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, a, w_ih_t, w_hh_t, bias, h, c = ctx.saved_tensors
+        dx, daux, dw_ih_t, dw_hh_t, db = blstm_fullfused_cond_bwd(
+            x, a, w_ih_t, w_hh_t, bias, h, c, dout.to(x.dtype).contiguous())
+        grads = _to_params(dw_ih_t.transpose(1, 2), dw_hh_t.transpose(1, 2),
+                           db)
+        return (dx.to(ctx.dtypes[0]), daux.to(ctx.dtypes[1])) + grads + (
+            None,)
+
+
+class BLSTMBidiCore(torch.autograd.Function):
+    """The two recurrences of a layer from gate inputs through
+    ``blstm_bidi_fwd`` / ``blstm_bidi_bwd`` (JAX ``_bi_core``).
+    ``apply(xg, w_hh_t, storage_dtype)``: xg (B, T, 8H) in the storage
+    dtype, w_hh_t (2, H, 4H) float32 master weights, cast inside. The
+    backward returns dxg in the storage dtype, as ``_bi_core_bwd`` (:607)
+    does, and dW_hh^T in float32."""
+
+    @staticmethod
+    def forward(ctx, xg, w_hh_t, storage_dtype):
+        w = w_hh_t.to(storage_dtype).contiguous()
+        h, c = blstm_bidi_fwd(xg, w, with_cell=True)
+        ctx.save_for_backward(xg, w, h, c)
+        return h
+
+    @staticmethod
+    def backward(ctx, dout):
+        xg, w, h, c = ctx.saved_tensors
+        # dh in float32, as ``_bi_core_bwd`` casts its cotangents
+        dxg, dw_hh_t = blstm_bidi_bwd(xg, w, h, c, dout.float().contiguous())
+        return dxg, dw_hh_t, None
+
+
+def _bidi_core_layer(x, params, storage_dtype):
+    """``blstm_apply_fused_bidi`` under autograd: the projection recorded
+    by autograd, the recurrences by :class:`BLSTMBidiCore`."""
+    w_ih, w_hh, bias = _stacked(params)
+    xg = _projection(x, w_ih, bias, storage_dtype)
+    return BLSTMBidiCore.apply(xg, w_hh.transpose(1, 2), storage_dtype)
+
+
+def _records_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def blstm_apply(layer: BLSTM, x, storage_dtype, fullfuse=True):
     """x: (B, T, I) -> (B, T, 2H) in ``storage_dtype``. Where autograd
-    records, the layer runs as one of the two Functions and saves c for
-    its backward; elsewhere (serving) the forward kernel writes h only."""
-    params = tuple(getattr(layer, name) for name in PARAM_NAMES)
-    wide = x.shape[-1] > FULLFUSE_MAX_INPUT
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x,) + params):
-        fn = BLSTMLayerFused if wide else BLSTMLayerFullFused
+    records, the layer runs as one of the Functions and saves c for its
+    backward; elsewhere (serving) the forward kernel writes h only.
+    ``fullfuse=False`` takes the gate-input path for every width."""
+    params = _layer_params(layer)
+    # xg computed outside the kernel, as for inputs too wide to fuse
+    gate_inputs = not fullfuse or x.shape[-1] > FULLFUSE_MAX_INPUT
+    if _records_grad(x, *params):
+        if not fullfuse:
+            return _bidi_core_layer(x, params, storage_dtype)
+        fn = BLSTMLayerFused if gate_inputs else BLSTMLayerFullFused
         return fn.apply(x, *params, storage_dtype)
-    if wide:
+    if gate_inputs:
         xg, _, w_hh_t = _bidi_prep(x, params, storage_dtype)
         h, _ = blstm_bidi_fwd(xg, w_hh_t)
     else:
@@ -191,7 +283,8 @@ class RNNP(nn.Module):
     """
 
     def __init__(self, idim, elayers=1, cdim=300, hdim=320, dropout=0.0,
-                 typ='blstm', *, storage_dtype=torch.bfloat16, device='cuda'):
+                 typ='blstm', *, storage_dtype=torch.bfloat16, fullfuse=True,
+                 device='cuda'):
         super().__init__()
         if typ != 'blstm':
             raise NotImplementedError(f'RNNP typ={typ!r}: only the '
@@ -200,6 +293,7 @@ class RNNP(nn.Module):
         self.idim, self.elayers, self.cdim, self.hdim = idim, elayers, cdim, hdim
         self.dropout = dropout
         self.storage_dtype = storage_dtype
+        self.fullfuse = fullfuse
         for i in range(elayers):
             inputdim = idim if i == 0 else hdim
             self.add_module(f'lstm{i}', BLSTM(inputdim, cdim, device=device))
@@ -221,15 +315,40 @@ class RNNP(nn.Module):
         lead = x.shape[:-2]
         h = x.reshape((-1,) + x.shape[-2:])
         for i in range(self.elayers):
-            h = blstm_apply(getattr(self, f'lstm{i}'), h, self.storage_dtype)
-            proj = getattr(self, f'proj{i}')
-            h = nn.functional.linear(h, proj.weight.to(h.dtype),
-                                     proj.bias.to(h.dtype))
+            h = blstm_apply(getattr(self, f'lstm{i}'), h, self.storage_dtype,
+                            self.fullfuse)
+            h = self._project(i, h)
             if i < self.elayers - 1:
                 if training:
                     h = inverted_dropout(h, self.dropout, generator)
                 h = torch.tanh(h)
         return h.reshape(lead + h.shape[-2:])
+
+    def _project(self, i, h):
+        proj = getattr(self, f'proj{i}')
+        return nn.functional.linear(h, proj.weight.to(h.dtype),
+                                    proj.bias.to(h.dtype))
+
+    def forward_conditioned(self, xs, aux):
+        """The block on the 'mul'-conditioned input, ``forward(xs[:, None]
+        * aux[:, :, None])``, with the product formed inside the kernels
+        (JAX ``RNNP.apply_conditioned``, ``tssep_tpu/nn/rnnp.py:414-435``).
+        xs: (B, T, idim); aux: (B, S, idim) -> (B, S, T, hdim) in the
+        storage dtype. Needs ``elayers == 1``."""
+        if self.elayers != 1:
+            raise ValueError(f'forward_conditioned needs elayers == 1, got '
+                             f'{self.elayers}')
+        params = _layer_params(self.lstm0)
+        if _records_grad(xs, aux, *params):
+            h = BLSTMLayerFullFusedCond.apply(xs, aux, *params,
+                                              self.storage_dtype)
+        else:
+            x, w_ih_t, w_hh_t, bias = _fullfused_prep(xs, params,
+                                                      self.storage_dtype)
+            h, _ = blstm_fullfused_cond_fwd(
+                x, aux.to(self.storage_dtype).contiguous(), w_ih_t, w_hh_t,
+                bias)
+        return self._project(0, h)
 
 
 def inverted_dropout(h, p, generator: torch.Generator | None):

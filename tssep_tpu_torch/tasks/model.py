@@ -56,14 +56,22 @@ class Model(nn.Module):
 
     @classmethod
     def from_config(cls, config: dict, *, storage_dtype=torch.bfloat16,
-                    device='cuda'):
+                    device='cuda', cond_fuse=False, fullfuse=True):
         """Build from a config dict of the JAX package's form, e.g. the
         flagship of ``bench.py:98-106``. ``fe`` holds the STFT settings and
         ``mask_estimator`` the estimator's keyword arguments; ``idim``,
         ``odim`` and ``nmask`` follow from the feature extractor and the
         Masking enhancer, as the JAX config derives them. ``loss`` is
         ``{'factory': 'LogMAE', ...}`` (the default). ``reader`` configures
-        the data source, which is not part of the model."""
+        the data source, which is not part of the model.
+
+        ``cond_fuse`` and ``fullfuse`` choose kernels, as the JAX package's
+        ``TSSEP_PALLAS_CONDFUSE`` and ``TSSEP_PALLAS_FULLFUSE`` do
+        (``MaskEstimator``): ``cond_fuse=True`` forms the 'mul' conditioning
+        inside the first post-net layer's kernels, ``fullfuse=False`` runs
+        every BLSTM layer from gate inputs computed outside. Neither changes
+        the parameters, so the same named arrays load
+        (``compat/from_jax.py``) whatever the switches."""
         unknown = set(config) - {'fe', 'reader', 'mask_estimator', 'loss'}
         if unknown:
             raise NotImplementedError(f'config keys {sorted(unknown)}')
@@ -72,6 +80,7 @@ class Model(nn.Module):
         me_cfg = dict(idim=fe.output_size, odim=fe.frequencies, nmask=1)
         me_cfg.update(config.get('mask_estimator', {}))
         estimator = MaskEstimator(**me_cfg, storage_dtype=storage_dtype,
+                                  cond_fuse=cond_fuse, fullfuse=fullfuse,
                                   device=device)
         return cls(fe, estimator, loss_from_config(config.get('loss')),
                    device=device)
