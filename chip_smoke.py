@@ -23,7 +23,7 @@ Phases, each of which must pass:
    16, then 1 request with 2 permutation trials, through the conditioned
    first post-net layer; masks and waveforms agree with the model without
    ``cond_fuse`` and with the plain versions; the peak memory of one request
-   with and without ``cond_fuse``;
+   with and without ``cond_fuse`` (so too 9 and 10);
 6. training: the same model trains 3 steps at batch 16 on batches from the
    port's on-device simulator (``Trainer.train``, LogMAE, clipped Adam),
    through all four kernels of its path, with finite losses; then one
@@ -31,10 +31,20 @@ Phases, each of which must pass:
    plain versions, in bfloat16 and in float32 storage;
 7. training with ``cond_fuse``: 3 steps as in 6 through the conditioned
    layer, one step's loss and gradients against the plain versions and
-   against the model without ``cond_fuse``, and the peak memory of a step
-   with and without it;
+   against the default model, the peak memory of a step with and without
+   the switch, and one profiled step (so too 8, 11, 12 and 13);
 8. training with ``fullfuse=False``: 2 steps, every layer through the
-   gate-input kernels, one step's gradients against the plain versions.
+   gate-input kernels;
+9. serving with ``spill``: 3 requests, ``pre_net``, ``birnn0`` and
+   ``birnn1`` through the spill forward; masks and waveforms against the
+   default model and the plain versions;
+10. serving with ``bidi=False``: the same, ``birnn2`` one direction at a
+    time through ``lstm_fwd``;
+11. training with ``spill``: 3 steps through the spill pair;
+12. training with ``bidi=False``: 3 steps with ``birnn2`` through the
+    unidirectional pair;
+13. training with ``fullfuse=False, bidi=False``: 2 steps, every direction
+    of every layer through the unidirectional pair.
 
 The last two lines of standard output are the kernels' JSON line and the
 device's JSON line. Without CUDA it exits with code 1 and prints no result.
@@ -125,6 +135,16 @@ SOURCES = {
     'blstm_fullfused_cond_bwd': ('tssep_tpu_torch/kernels/csrc/'
                                  'blstm_fullfused_cond_bwd.cu',
                                  'tssep_tpu/kernels/blstm.py:1707'),
+    'blstm_fullfused_spill_fwd': ('tssep_tpu_torch/kernels/csrc/'
+                                  'blstm_fullfused_spill_fwd.cu',
+                                  'tssep_tpu/kernels/blstm.py:1228'),
+    'blstm_fullfused_spill_bwd': ('tssep_tpu_torch/kernels/csrc/'
+                                  'blstm_fullfused_spill_bwd.cu',
+                                  'tssep_tpu/kernels/blstm.py:1280'),
+    'lstm_fwd': ('tssep_tpu_torch/kernels/csrc/lstm_fwd.cu',
+                 'tssep_tpu/kernels/blstm.py:52'),
+    'lstm_bwd': ('tssep_tpu_torch/kernels/csrc/lstm_bwd.cu',
+                 'tssep_tpu/kernels/blstm.py:82'),
 }
 KERNELS = tuple(SOURCES)
 #: (label, B, T, F, H) of the fully fused kernel's calls and (label, B, T, H)
@@ -166,6 +186,27 @@ COND_BWD_CASES = [('ragged', 3, 4, 23, 12, 16),
 #: The yardstick of the conditioned kernels: no single PyTorch call computes
 #: the layer, so the materialized product and cuDNN's LSTM, timed together.
 COND_LIBRARY = 'product + cuDNN, 2 calls'
+#: The spill pair's calls, (label, B, T, F, H): the fully fused layers of a
+#: served request or a training step at batch 16, and at batch 256; the
+#: ragged T has 5 spill blocks, the last one short.
+SPILL_CASES = [('ragged', 13, 37, 12, 16),
+               ('serve pre_net', 16, FRAMES, BINS, HIDDEN),
+               ('serve birnn0', 16 * SPEAKERS, FRAMES, BINS, HIDDEN),
+               ('serve birnn1', 16 * SPEAKERS, FRAMES, 320, HIDDEN),
+               ('pre_net', 256, FRAMES, BINS, HIDDEN),
+               ('birnn0', 256 * SPEAKERS, FRAMES, BINS, HIDDEN),
+               ('birnn1', 256 * SPEAKERS, FRAMES, 320, HIDDEN)]
+SPILL_BWD_CASES = [(label.replace('serve', 'train'), *dims)
+                   for label, *dims in SPILL_CASES]
+#: The unidirectional pair's calls, (label, B, T, H, reverse): both
+#: directions of birnn2 with ``bidi=False`` at batch 16 and 256, and one
+#: direction of birnn0 with ``fullfuse=False, bidi=False``.
+LSTM_CASES = [(label, B, T, H, rev) for label, B, T, H in (
+    ('ragged', 13, 23, 16), ('serve birnn2', 16, FRAMES, HIDDEN),
+    ('birnn2', 256, FRAMES, HIDDEN)) for rev in (False, True)] + [
+    ('fullfuse=False birnn0', 16 * SPEAKERS, FRAMES, HIDDEN, True)]
+LSTM_BWD_CASES = [(label.replace('serve', 'train'), *dims)
+                  for label, *dims in LSTM_CASES]
 
 
 
@@ -251,13 +292,19 @@ def _case(name, dtype, run, run_plain, outputs, plain_outputs, flops,
             'library': library_label if library else None}
 
 
-def fullfused_case(label, B, T, F, H, dtype, gen):
-    size = torch.finfo(dtype).bits // 8
+def _fullfused_inputs(B, T, F, H, dtype, gen):
+    """x, w_ih_t, w_hh_t, bias of one fully fused layer."""
     x = torch.randn(B, T, F, generator=gen, device='cuda').to(dtype)
     b = 1 / H ** 0.5
     w_ih_t = _uniform(gen, (2, F, 4 * H), b, dtype)
     w_hh_t = _uniform(gen, (2, H, 4 * H), b, dtype)
     bias = _uniform(gen, (2, 4 * H), 2 * b, F32)
+    return x, w_ih_t, w_hh_t, bias
+
+
+def fullfused_case(label, B, T, F, H, dtype, gen):
+    size = torch.finfo(dtype).bits // 8
+    x, w_ih_t, w_hh_t, bias = _fullfused_inputs(B, T, F, H, dtype, gen)
     got = kb.blstm_fullfused_fwd(x, w_ih_t, w_hh_t, bias, with_cell=True)
     want = kb.blstm_fullfused_fwd_plain(x, w_ih_t, w_hh_t, bias,
                                         with_cell=True)
@@ -272,6 +319,47 @@ def fullfused_case(label, B, T, F, H, dtype, gen):
         nbytes=size * (B * T * F + 2 * (F + H) * 4 * H + B * T * 2 * H)
         + 4 * 2 * 4 * H,
         library=lambda: lstm(x))
+
+
+def spill_case(label, B, T, F, H, dtype, gen):
+    """The spill forward against its plain version, h and the boundaries;
+    timed as it runs on its path: a served layer writes no boundaries."""
+    size = torch.finfo(dtype).bits // 8
+    x, w_ih_t, w_hh_t, bias = _fullfused_inputs(B, T, F, H, dtype, gen)
+    got = kb.blstm_fullfused_spill_fwd(x, w_ih_t, w_hh_t, bias,
+                                       with_boundaries=True)
+    want = kb.blstm_fullfused_spill_fwd_plain(x, w_ih_t, w_hh_t, bias,
+                                              with_boundaries=True)
+    lstm = torch.nn.LSTM(F, H, bidirectional=True, batch_first=True,
+                         device='cuda', dtype=dtype)
+    lstm.flatten_parameters()
+    bounds = not label.startswith('serve')
+    nblk = -(-T // kb.SPILL_BLOCK)
+    return _case(
+        f'blstm_fullfused_spill_fwd {label} B={B} T={T} F={F} H={H}', dtype,
+        lambda: kb.blstm_fullfused_spill_fwd(x, w_ih_t, w_hh_t, bias,
+                                             with_boundaries=bounds),
+        lambda: kb.blstm_fullfused_spill_fwd_plain(
+            x, w_ih_t, w_hh_t, bias, with_boundaries=bounds),
+        got, want, flops=2 * B * T * 2 * (F + H) * 4 * H,
+        nbytes=size * (B * T * F + 2 * (F + H) * 4 * H + B * T * 2 * H
+                       + bounds * 2 * nblk * B * H) + 4 * 2 * 4 * H,
+        library=lambda: lstm(x))
+
+
+def lstm_case(label, B, T, H, reverse, dtype, gen):
+    size = torch.finfo(dtype).bits // 8
+    xg = torch.randn(B, T, 4 * H, generator=gen, device='cuda').to(dtype)
+    w_hh_t = _uniform(gen, (H, 4 * H), 1 / H ** 0.5, dtype)
+    got = kb.lstm_fwd(xg, w_hh_t, reverse=reverse, with_cell=True)
+    want = kb.lstm_fwd_plain(xg, w_hh_t, reverse=reverse, with_cell=True)
+    return _case(
+        f'lstm_fwd {label} B={B} T={T} H={H} '
+        f'{"reverse" if reverse else "forward"}', dtype,
+        lambda: kb.lstm_fwd(xg, w_hh_t, reverse=reverse),
+        lambda: kb.lstm_fwd_plain(xg, w_hh_t, reverse=reverse),
+        got, want, flops=2 * B * T * H * 4 * H,
+        nbytes=size * (B * T * 4 * H + H * 4 * H + B * T * H))
 
 
 def _cond_inputs(B, S, T, F, H, dtype, gen):
@@ -345,10 +433,11 @@ def bwd_bound(rec_flops, grad_flops, nbytes, dtype):
 
 
 def _bwd_case(name, dtype, run, run_plain, out_names, bound_, library=None,
-              library_label='cuDNN backward'):
+              library_label='cuDNN backward', split=False):
     """Kernel against plain version, each output's error over its peak;
     the plain version is timed once, by the run that gives the reference.
-    ``library`` makes the yardstick's call."""
+    ``library`` makes the yardstick's call; ``split`` adds one call's device
+    time by kernel (:func:`_device_split`)."""
     plain_ms, want = cuda_ms_once(run_plain)
     got = run()
     errs = {}
@@ -369,36 +458,73 @@ def _bwd_case(name, dtype, run, run_plain, out_names, bound_, library=None,
         except RuntimeError as exc:   # a yardstick only: record its absence
             log(f'{name}: library call refused: {exc}')
     bound_ms, bound_by = bound_
-    return {'name': name, 'dtype': str(dtype).split('.')[-1],
-            'max_abs_err': max(e['max_abs_err'] for e in errs.values()),
-            'max_rel_err': rel, 'errors': errs, 'ms': ms,
-            'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
-            'library_ms': library_ms,
-            'library': library_label if library else None}
+    row = {'name': name, 'dtype': str(dtype).split('.')[-1],
+           'max_abs_err': max(e['max_abs_err'] for e in errs.values()),
+           'max_rel_err': rel, 'errors': errs, 'ms': ms,
+           'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
+           'library_ms': library_ms,
+           'library': library_label if library else None}
+    if split:
+        row['device_ms_by_kernel'] = _device_split(run)
+    return row
+
+
+#: The kernels of the CUDA sources, longest name first where one name holds
+#: another.
+_KERNEL_NAMES = ('spill_walk_kernel', 'cell_rebuild_kernel', 'gates_kernel',
+                 'blstm_bwd_walk_kernel', 'wgrad_kernel', 'cond_daux_kernel',
+                 'cond_dx_kernel', 'dx_kernel', 'blstm_fwd_kernel')
+
+
+def _device_events(prof):
+    """(name, device ms) of each kernel a ``torch.profiler`` run recorded."""
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, 'self_device_time_total', None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        yield evt.key, us / 1e3
+
+
+def _device_split(fn):
+    """Device time of one call of ``fn`` by kernel (``_KERNEL_NAMES``, the
+    rest as 'other'), from ``torch.profiler``; None where it records none."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except (RuntimeError, AttributeError) as exc:
+        log(f'profiler failed: {exc}')
+        return None
+    split = {}
+    for key, ms in _device_events(prof):
+        name = next((n for n in _KERNEL_NAMES if n in key), 'other')
+        split[name] = split.get(name, 0.0) + ms
+    return split or None
+
+
+def _cudnn_bwd(x, dh, H):
+    """Yardstick: cuDNN's bidirectional LSTM backward at the shapes of x
+    and dh, from a kept graph; returns the call to time."""
+    lstm = torch.nn.LSTM(x.shape[-1], H, bidirectional=True,
+                         batch_first=True, device='cuda', dtype=x.dtype)
+    lstm.flatten_parameters()
+    x_leaf = x.detach().requires_grad_()
+    out, _ = lstm(x_leaf)
+    inputs = [x_leaf, *lstm.parameters()]
+    return lambda: torch.autograd.grad(out, inputs, dh, retain_graph=True)
 
 
 def fullfused_bwd_case(label, B, T, F, H, dtype, gen):
     size = torch.finfo(dtype).bits // 8
-    x = torch.randn(B, T, F, generator=gen, device='cuda').to(dtype)
-    b = 1 / H ** 0.5
-    w_ih_t = _uniform(gen, (2, F, 4 * H), b, dtype)
-    w_hh_t = _uniform(gen, (2, H, 4 * H), b, dtype)
-    bias = _uniform(gen, (2, 4 * H), 2 * b, F32)
+    x, w_ih_t, w_hh_t, bias = _fullfused_inputs(B, T, F, H, dtype, gen)
     h, c = kb.blstm_fullfused_fwd(x, w_ih_t, w_hh_t, bias, with_cell=True)
     dh = (0.1 * torch.randn(B, T, 2 * H, generator=gen, device='cuda')).to(
         dtype)
     args = (x, w_ih_t, w_hh_t, bias, h, c, dh)
-    def library():
-        """Yardstick: cuDNN's bidirectional LSTM backward at the same
-        shapes, from a kept graph."""
-        lstm = torch.nn.LSTM(F, H, bidirectional=True, batch_first=True,
-                             device='cuda', dtype=dtype)
-        lstm.flatten_parameters()
-        x_leaf = x.detach().requires_grad_()
-        out, _ = lstm(x_leaf)
-        inputs = [x_leaf, *lstm.parameters()]
-        return lambda: torch.autograd.grad(out, inputs, dh, retain_graph=True)
-
     rows = B * T
     # operations: gate recompute 2 rows 2 dirs (F + H) 4H on storage
     # operands; dh (4H H), weight and bias sums ((F + H + 1) 4H) and dx
@@ -413,7 +539,57 @@ def fullfused_bwd_case(label, B, T, F, H, dtype, gen):
         lambda: kb.blstm_fullfused_bwd(*args),
         lambda: kb.blstm_fullfused_bwd_plain(*args),
         ('dx', 'dw_ih', 'dw_hh', 'db'), bwd_bound(rec, grad, nbytes, dtype),
-        library=library)
+        library=lambda: _cudnn_bwd(x, dh, H), split=label.endswith('birnn0'))
+
+
+def spill_bwd_case(label, B, T, F, H, dtype, gen):
+    size = torch.finfo(dtype).bits // 8
+    x, w_ih_t, w_hh_t, bias = _fullfused_inputs(B, T, F, H, dtype, gen)
+    h, cb = kb.blstm_fullfused_spill_fwd(x, w_ih_t, w_hh_t, bias,
+                                         with_boundaries=True)
+    dh = (0.1 * torch.randn(B, T, 2 * H, generator=gen, device='cuda')).to(
+        dtype)
+    args = (x, w_ih_t, w_hh_t, bias, h, cb, dh)
+    rows = B * T
+    # operations: as the fully fused backward's (the gate pre-activations
+    # on storage operands; dh, the weight and bias sums and dx on f32 ones).
+    # bytes: x, h, the boundaries, dh and the weights read once, dx and the
+    # weight gradients written once (f32).
+    rec = 2 * rows * 2 * (F + H) * 4 * H
+    grad = 2 * rows * 2 * (4 * H * H + (F + H + 1) * 4 * H + 4 * H * F)
+    nbytes = (size * (rows * F + 2 * rows * 2 * H
+                      + 2 * -(-T // kb.SPILL_BLOCK) * B * H
+                      + 2 * (F + H) * 4 * H)
+              + 4 * (2 * 4 * H + rows * F + 2 * (F + H + 1) * 4 * H))
+    return _bwd_case(
+        f'blstm_fullfused_spill_bwd {label} B={B} T={T} F={F} H={H}', dtype,
+        lambda: kb.blstm_fullfused_spill_bwd(*args),
+        lambda: kb.blstm_fullfused_spill_bwd_plain(*args),
+        ('dx', 'dw_ih', 'dw_hh', 'db'), bwd_bound(rec, grad, nbytes, dtype),
+        library=lambda: _cudnn_bwd(x, dh, H), split=label.endswith('birnn0'))
+
+
+def lstm_bwd_case(label, B, T, H, reverse, dtype, gen):
+    size = torch.finfo(dtype).bits // 8
+    xg = torch.randn(B, T, 4 * H, generator=gen, device='cuda').to(dtype)
+    w_hh_t = _uniform(gen, (H, 4 * H), 1 / H ** 0.5, dtype)
+    h, c = kb.lstm_fwd(xg, w_hh_t, reverse=reverse, with_cell=True)
+    dh = 0.1 * torch.randn(B, T, H, generator=gen, device='cuda')
+    args = (xg, w_hh_t, h, c, dh)
+    rows = B * T
+    # operations: gate recompute 2 rows H 4H on storage operands; dh (4H H)
+    # and dW_hh (H 4H) on f32 ones. bytes: xg, h, c, w_hh, dh (f32) read
+    # once, dxg and dW_hh (f32) written once.
+    rec = 2 * rows * H * 4 * H
+    grad = 2 * rows * 2 * 4 * H * H
+    nbytes = (size * (2 * rows * 4 * H + 2 * rows * H + H * 4 * H)
+              + 4 * (rows * H + H * 4 * H))
+    return _bwd_case(
+        f'lstm_bwd {label} B={B} T={T} H={H} '
+        f'{"reverse" if reverse else "forward"}', dtype,
+        lambda: kb.lstm_bwd(*args, reverse=reverse),
+        lambda: kb.lstm_bwd_plain(*args, reverse=reverse),
+        ('dxg', 'dw_hh'), bwd_bound(rec, grad, nbytes, dtype))
 
 
 def cond_bwd_case(label, B, S, T, F, H, dtype, gen):
@@ -494,7 +670,11 @@ def phase_kernels():
             ('blstm_fullfused_bwd', fullfused_bwd_case, FULLFUSED_BWD_CASES),
             ('blstm_bidi_bwd', bidi_bwd_case, BIDI_BWD_CASES),
             ('blstm_fullfused_cond_fwd', cond_case, COND_CASES),
-            ('blstm_fullfused_cond_bwd', cond_bwd_case, COND_BWD_CASES)]
+            ('blstm_fullfused_cond_bwd', cond_bwd_case, COND_BWD_CASES),
+            ('blstm_fullfused_spill_fwd', spill_case, SPILL_CASES),
+            ('blstm_fullfused_spill_bwd', spill_bwd_case, SPILL_BWD_CASES),
+            ('lstm_fwd', lstm_case, LSTM_CASES),
+            ('lstm_bwd', lstm_bwd_case, LSTM_BWD_CASES)]
     for dtype in (F32, BF16):
         for name, case_fn, cases in plan:
             for case in cases:
@@ -627,29 +807,14 @@ def phase_serving():
 
 
 def phase_serving_cond():
-    """The same weights and requests with ``cond_fuse``: birnn0 through the
-    conditioned kernel, at 1 and at 2 permutation trials."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    model, base = _flagship(cond_fuse=True), _flagship()
-    warm, *requests = _requests()
-    model(warm)
-    torch.cuda.synchronize()
-
-    times, launches = _serve(model, requests)
-    log(f'serve cond_fuse: {REQUESTS} requests of batch {SERVE_BATCH}, ms '
-        f'each {[round(t, 2) for t in times]}, launches {launches}')
+    """``cond_fuse`` served as :func:`phase_serving_switch` serves a switch,
+    then 1 request at 2 permutation trials against the model without it and
+    the plain versions."""
     per_request = {'blstm_fullfused_cond_fwd': 1, 'blstm_fullfused_fwd': 2,
                    'blstm_bidi_fwd': 1}
-    check(launches == _expect(per_request, REQUESTS),
-          f'per request 1 conditioned, 2 fully fused and 1 bidi launch, got '
-          f'{launches}')
-    agree = {'cond_fuse=False': _agreement(model, requests[0], BF16, base,
-                                           'the model without cond_fuse'),
-             'plain': _agreement(model, requests[0], BF16)}
-    agree['plain f32'] = _agreement(_flagship(F32, cond_fuse=True),
-                                    requests[0], F32)
-
+    result = phase_serving_switch('serve cond_fuse', per_request,
+                                  cond_fuse=True)
+    warm, *requests = _requests()
     model2, base2 = (_flagship(trials=2, cond_fuse=True),
                      _flagship(trials=2))
     model2(warm)
@@ -657,20 +822,12 @@ def phase_serving_cond():
     log(f'serve cond_fuse trials 2: 1 request of batch {SERVE_BATCH}, ms '
         f'{[round(t, 2) for t in times2]}, launches {launches2}')
     check(launches2 == _expect(per_request, 1),
-          f'trials 2: per request 1 conditioned, 2 fully fused and 1 bidi '
-          f'launch, got {launches2}')
-    agree['trials 2 cond_fuse=False'] = _agreement(
-        model2, requests[0], BF16, base2, 'the model without cond_fuse, '
-        'trials 2')
+          f'trials 2: per request {per_request}, got {launches2}')
+    agree = result['agreement']
+    agree['trials 2 default'] = _agreement(
+        model2, requests[0], BF16, base2, 'the default model, trials 2')
     agree['trials 2 plain'] = _agreement(model2, requests[0], BF16)
-
-    peak = {'cond_fuse': _peak_mib(lambda: model(requests[0])),
-            'materialized': _peak_mib(lambda: base(requests[0]))}
-    log(f'serve: peak memory of one request of batch {SERVE_BATCH} over the '
-        f'weights (MiB): {json.dumps(peak)}')
-    return {'launches': launches, 'launches_trials2': launches2,
-            'ms': times, 'ms_trials2': times2, 'peak_mib': peak,
-            'agreement': agree}
+    return dict(result, launches_trials2=launches2, ms_trials2=times2)
 
 
 def _step_grads(model, batch, plain):
@@ -711,7 +868,10 @@ def _train_agreement(model, batch, dtype, reference=None,
 
 _STEP_KERNELS = {'forward kernels': ('blstm_fwd_kernel',),
                  'backward kernels': ('blstm_bwd_walk_kernel', 'wgrad_kernel',
-                                      'dx_kernel', 'cond_daux_kernel')}
+                                      'dx_kernel', 'cond_daux_kernel',
+                                      'cond_dx_kernel', 'gates_kernel',
+                                      'cell_rebuild_kernel',
+                                      'spill_walk_kernel')}
 
 
 def _profile_step(trainer, batch):
@@ -726,16 +886,11 @@ def _profile_step(trainer, batch):
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     split = dict.fromkeys(list(_STEP_KERNELS) + ['other device work'], 0.0)
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, 'self_device_time_total', None)
-        if us is None:
-            us = evt.self_cuda_time_total
+    for key, ms in _device_events(prof):
         group = next((g for g, names in _STEP_KERNELS.items()
-                      if any(n in evt.key for n in names)),
+                      if any(n in key for n in names)),
                      'other device work')
-        split[group] += us / 1e3
+        split[group] += ms
     busy = sum(split.values())
     if busy == 0:
         return None
@@ -837,49 +992,65 @@ def _train_checks(model, batch, label, **switches):
     return agree
 
 
-def phase_training_cond():
-    """Training with ``cond_fuse``: birnn0 through the conditioned pair."""
+def phase_serving_switch(label, per_request, **switches):
+    """Serving with ``switches``: ``REQUESTS`` requests of the same weights
+    and requests as the default, through the kernels ``per_request`` names;
+    masks and waveforms against the default model and the plain versions;
+    the peak memory of one request with and without the switches."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = _flagship(cond_fuse=True)
-    trainer, data, losses, launches = _train(
-        model, TRAIN_STEPS, {'blstm_fullfused_cond_fwd': 1,
-                             'blstm_fullfused_cond_bwd': 1,
-                             'blstm_fullfused_fwd': 2,
-                             'blstm_fullfused_bwd': 2, 'blstm_bidi_fwd': 1,
-                             'blstm_bidi_bwd': 1}, 'train cond_fuse')
-    gen_ms, step_ms, batch = _step_times(trainer, data, TRAIN_STEPS,
-                                         'train cond_fuse')
-    agree = _train_checks(model, batch, 'train cond_fuse', cond_fuse=True)
+    model, base = _flagship(**switches), _flagship()
+    warm, *requests = _requests()
+    model(warm)
+    torch.cuda.synchronize()
+
+    times, launches = _serve(model, requests)
+    log(f'{label}: {REQUESTS} requests of batch {SERVE_BATCH}, ms each '
+        f'{[round(t, 2) for t in times]}, launches {launches}')
+    check(launches == _expect(per_request, REQUESTS),
+          f'{label}: per request {per_request}, got {launches}')
+    agree = {'default': _agreement(model, requests[0], BF16, base,
+                                   'the default model'),
+             'plain': _agreement(model, requests[0], BF16),
+             'plain f32': _agreement(_flagship(F32, **switches), requests[0],
+                                     F32)}
+    peak = {'switched': _peak_mib(lambda: model(requests[0])),
+            'default': _peak_mib(lambda: base(requests[0]))}
+    log(f'{label}: peak memory of one request of batch {SERVE_BATCH} over '
+        f'the weights (MiB): {json.dumps(peak)}')
+    return {'launches': launches, 'ms': times, 'peak_mib': peak,
+            'agreement': agree}
+
+
+def phase_training_switch(label, steps, per_step, **switches):
+    """Training with ``switches``: ``steps`` steps through the kernels
+    ``per_step`` names, one step's loss and gradients against the plain
+    versions and against the default model on the same weights, and the
+    peak memory of one step with and without the switches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _flagship(**switches)
+    trainer, data, losses, launches = _train(model, steps, per_step, label)
+    gen_ms, step_ms, batch = _step_times(trainer, data, steps, label)
+    try:
+        split = _profile_step(trainer, batch)
+    except (RuntimeError, AttributeError) as exc:
+        split = None
+        log(f'{label}: profiler failed: {exc}')
+    log(f'{label}: step split from torch.profiler (ms): '
+        f'{json.dumps(split) if split else "not measured"}')
+    agree = _train_checks(model, batch, label, **switches)
     base = _flagship()
     base.load_state_dict(model.state_dict())
-    agree['cond_fuse=False'] = _train_agreement(
-        model, batch, BF16, base, 'the model without cond_fuse')
-    peak = {'cond_fuse': _peak_mib(lambda: _step_grads(model, batch, False)),
-            'materialized': _peak_mib(lambda: _step_grads(base, batch,
-                                                          False))}
-    log(f'train cond_fuse: peak memory of one step\'s forward and backward '
-        f'at batch {TRAIN_BATCH} over the weights (MiB): {json.dumps(peak)}')
+    agree['default'] = _train_agreement(model, batch, BF16, base,
+                                        'the default model')
+    peak = {'switched': _peak_mib(lambda: _step_grads(model, batch, False)),
+            'default': _peak_mib(lambda: _step_grads(base, batch, False))}
+    log(f'{label}: peak memory of one step\'s forward and backward at batch '
+        f'{TRAIN_BATCH} over the weights (MiB): {json.dumps(peak)}')
     return {'launches': launches, 'losses': losses, 'step_ms': step_ms,
-            'gen_ms': gen_ms, 'peak_mib': peak, 'agreement': agree}
-
-
-def phase_training_nofuse():
-    """Training with ``fullfuse=False``: every layer through the gate-input
-    kernels, the backward through ``BLSTMBidiCore`` (JAX ``_bi_core_bwd``)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    steps = 2
-    model = _flagship(fullfuse=False)
-    trainer, data, losses, launches = _train(
-        model, steps, {'blstm_bidi_fwd': 4, 'blstm_bidi_bwd': 4},
-        'train fullfuse=False')
-    gen_ms, step_ms, batch = _step_times(trainer, data, steps,
-                                         'train fullfuse=False')
-    agree = _train_checks(model, batch, 'train fullfuse=False',
-                          fullfuse=False)
-    return {'launches': launches, 'losses': losses, 'step_ms': step_ms,
-            'gen_ms': gen_ms, 'agreement': agree}
+            'gen_ms': gen_ms, 'split_profiler': split, 'peak_mib': peak,
+            'agreement': agree}
 
 
 def kernels_line(rows, phase_launches):
@@ -928,21 +1099,46 @@ def main():
     log(f'-- serving cond_fuse done at {time.perf_counter() - t0:.1f} s')
     training = phase_training(rows)
     log(f'-- training done at {time.perf_counter() - t0:.1f} s')
-    training_cond = phase_training_cond()
-    log(f'-- training cond_fuse done at {time.perf_counter() - t0:.1f} s')
-    training_nofuse = phase_training_nofuse()
-    log(f'-- training fullfuse=False done at '
-        f'{time.perf_counter() - t0:.1f} s')
+    switched = {}
+    for label, run in (
+            ('train cond_fuse', lambda label: phase_training_switch(
+                label, TRAIN_STEPS, {
+                    'blstm_fullfused_cond_fwd': 1,
+                    'blstm_fullfused_cond_bwd': 1, 'blstm_fullfused_fwd': 2,
+                    'blstm_fullfused_bwd': 2, 'blstm_bidi_fwd': 1,
+                    'blstm_bidi_bwd': 1}, cond_fuse=True)),
+            ('train fullfuse=False', lambda label: phase_training_switch(
+                label, 2, {'blstm_bidi_fwd': 4, 'blstm_bidi_bwd': 4},
+                fullfuse=False)),
+            ('serve spill', lambda label: phase_serving_switch(
+                label, {'blstm_fullfused_spill_fwd': 3, 'blstm_bidi_fwd': 1},
+                spill=True)),
+            ('serve bidi=False', lambda label: phase_serving_switch(
+                label, {'blstm_fullfused_fwd': 3, 'lstm_fwd': 2},
+                bidi=False)),
+            ('train spill', lambda label: phase_training_switch(
+                label, TRAIN_STEPS, {
+                    'blstm_fullfused_spill_fwd': 3,
+                    'blstm_fullfused_spill_bwd': 3, 'blstm_bidi_fwd': 1,
+                    'blstm_bidi_bwd': 1}, spill=True)),
+            ('train bidi=False', lambda label: phase_training_switch(
+                label, TRAIN_STEPS, {
+                    'blstm_fullfused_fwd': 3, 'blstm_fullfused_bwd': 3,
+                    'lstm_fwd': 2, 'lstm_bwd': 2}, bidi=False)),
+            ('train fullfuse=False bidi=False',
+             lambda label: phase_training_switch(
+                 label, 2, {'lstm_fwd': 8, 'lstm_bwd': 8}, fullfuse=False,
+                 bidi=False))):
+        switched[label] = run(label)
+        log(f'-- {label} done at {time.perf_counter() - t0:.1f} s')
     log(json.dumps({'serving cond_fuse': serving_cond, 'training': training,
-                    'training cond_fuse': training_cond,
-                    'training fullfuse=False': training_nofuse}))
+                    **switched}))
     print(json.dumps(kernels_line(rows, {
         'serve': serve_launches,
         'serve cond_fuse': serving_cond['launches'],
         'serve cond_fuse trials 2': serving_cond['launches_trials2'],
         'train': training['launches'],
-        'train cond_fuse': training_cond['launches'],
-        'train fullfuse=False': training_nofuse['launches']})))
+        **{label: r['launches'] for label, r in switched.items()}})))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

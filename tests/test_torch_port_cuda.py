@@ -1,4 +1,4 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's ten CUDA kernels against their plain versions, on the card.
 
 Needs an NVIDIA card with the CUDA toolkit; skips elsewhere. This file
 imports no JAX, so it also runs where JAX is missing, without the suite's
@@ -190,3 +190,86 @@ def test_fullfused_cond_bwd_kernel_matches_plain(gen, dtype, B, S, T, F, H):
     assert kb.blstm_fullfused_cond_bwd.launches == before + 1
     want = kb.blstm_fullfused_cond_bwd_plain(*args, h, c, dh)
     assert _rel_err(got, want) <= BWD_RTOL[dtype]
+
+
+# ragged T with several spill blocks and a short last one; the served
+# widths at a few rows
+SPILL_CASES = [(13, 37, 12, 16), (3, 1, 40, 300), (70, 19, 513, 300)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,T,F,H', SPILL_CASES)
+def test_spill_kernel_matches_plain(gen, dtype, B, T, F, H):
+    """h and the c boundaries; without boundaries the same h."""
+    x, w_ih_t, w_hh_t, bias, *_ = _fullfused_bwd_inputs(gen, dtype, B, T, F,
+                                                        H)
+    before = kb.blstm_fullfused_spill_fwd.launches
+    got = kb.blstm_fullfused_spill_fwd(x, w_ih_t, w_hh_t, bias,
+                                       with_boundaries=True)
+    assert kb.blstm_fullfused_spill_fwd.launches == before + 1
+    want = kb.blstm_fullfused_spill_fwd_plain(x, w_ih_t, w_hh_t, bias,
+                                              with_boundaries=True)
+    assert got[1].shape == (2, -(-T // kb.SPILL_BLOCK), B, H)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=ATOL[dtype],
+                                   rtol=0)
+    served, cb = kb.blstm_fullfused_spill_fwd(x, w_ih_t, w_hh_t, bias)
+    assert cb is None
+    torch.testing.assert_close(served, got[0], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,T,F,H', SPILL_CASES)
+def test_spill_bwd_kernel_matches_plain(gen, dtype, B, T, F, H):
+    x, w_ih_t, w_hh_t, bias, *_, dh = _fullfused_bwd_inputs(gen, dtype, B, T,
+                                                           F, H)
+    h, cb = kb.blstm_fullfused_spill_fwd(x, w_ih_t, w_hh_t, bias,
+                                         with_boundaries=True)
+    args = (x, w_ih_t, w_hh_t, bias, h, cb, dh)
+    before = kb.blstm_fullfused_spill_bwd.launches
+    got = kb.blstm_fullfused_spill_bwd(*args)
+    assert kb.blstm_fullfused_spill_bwd.launches == before + 1
+    want = kb.blstm_fullfused_spill_bwd_plain(*args)
+    assert _rel_err(got, want) <= BWD_RTOL[dtype]
+
+
+LSTM_CASES = [(13, 23, 16), (70, 9, 300)]
+
+
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,T,H', LSTM_CASES)
+def test_lstm_kernels_match_plain(gen, dtype, B, T, H, reverse):
+    """Both kernels of one direction, forward and backward."""
+    xg = torch.randn(B, T, 4 * H, generator=gen, device='cuda').to(dtype)
+    w_hh_t = _uniform(gen, (H, 4 * H), H ** -0.5, dtype)
+    before = kb.lstm_fwd.launches, kb.lstm_bwd.launches
+    h, c = kb.lstm_fwd(xg, w_hh_t, reverse=reverse, with_cell=True)
+    want = kb.lstm_fwd_plain(xg, w_hh_t, reverse=reverse, with_cell=True)
+    for g, w in zip((h, c), want):
+        torch.testing.assert_close(g.float(), w.float(), atol=ATOL[dtype],
+                                   rtol=0)
+    dh = torch.randn(B, T, H, generator=gen, device='cuda')
+    got = kb.lstm_bwd(xg, w_hh_t, h, c, dh, reverse=reverse)
+    assert (kb.lstm_fwd.launches, kb.lstm_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = kb.lstm_bwd_plain(xg, w_hh_t, h, c, dh, reverse=reverse)
+    assert _rel_err(got, want) <= BWD_RTOL[dtype]
+
+
+def test_lstm_strided_gate_inputs_read_in_place(gen):
+    """One direction of the bidi layer's xg (a slice) and a strided dh."""
+    B, T, H = 6, 11, 16
+    xg2 = torch.randn(B, T, 8 * H, generator=gen, device='cuda')
+    w_hh_t = _uniform(gen, (H, 4 * H), H ** -0.5, torch.float32)
+    xg = xg2[..., 4 * H:]
+    h, c = kb.lstm_fwd(xg, w_hh_t, reverse=True, with_cell=True)
+    want = kb.lstm_fwd_plain(xg.contiguous(), w_hh_t, reverse=True,
+                             with_cell=True)
+    torch.testing.assert_close(h, want[0], atol=1e-4, rtol=0)
+    wide_dh = torch.randn(B, T + 2, 2 * H, generator=gen, device='cuda')
+    dh = wide_dh[:, 1:T + 1, :H]
+    got = kb.lstm_bwd(xg, w_hh_t, h, c, dh, reverse=True)
+    want = kb.lstm_bwd_plain(xg.contiguous(), w_hh_t, h, c, dh.contiguous(),
+                             reverse=True)
+    assert _rel_err(got, want) <= 1e-4

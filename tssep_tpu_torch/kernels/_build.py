@@ -50,6 +50,15 @@ _SIGNATURES = {
                                        _P, _P, _P, _P, _LL, _LL, _P, _LL, _LL,
                                        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                        _P],
+    'tssep_blstm_fullfused_spill_fwd': [_P, _LL, _LL, _I, _P, _P, _P, _P, _P,
+                                        _LL, _LL, _I, _I, _I, _I, _I, _I, _P],
+    'tssep_blstm_fullfused_spill_bwd': [_P, _LL, _LL, _I, _P, _P, _P, _P, _P,
+                                        _P, _LL, _LL, _P, _P, _LL, _LL, _P, _P,
+                                        _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    'tssep_lstm_fwd': [_P, _LL, _LL, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I,
+                       _I, _P],
+    'tssep_lstm_bwd': [_P, _LL, _LL, _P, _P, _P, _P, _LL, _LL, _P, _LL, _LL, _P,
+                       _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

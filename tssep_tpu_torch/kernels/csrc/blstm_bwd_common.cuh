@@ -1,6 +1,7 @@
-// Shared body of the three backward BLSTM kernels (blstm_fullfused_bwd.cu,
-// blstm_fullfused_cond_bwd.cu and blstm_bidi_bwd.cu). Three grid kernels,
-// launched one after the other on one stream:
+// Shared body of the backward LSTM kernels (blstm_fullfused_bwd.cu,
+// blstm_fullfused_cond_bwd.cu, blstm_bidi_bwd.cu and lstm_bwd.cu; the
+// spill backward, blstm_fullfused_spill_bwd.cu, reuses the sums). Three grid
+// kernels, launched one after the other on one stream:
 //
 // 1. blstm_bwd_walk_kernel, the serial part. One block per (batch tile of BT
 //    rows, direction), as in the forward (blstm_common.cuh): thread j owns
@@ -68,6 +69,9 @@ __device__ __forceinline__ void accumulate1(float (&acc)[BT], const float* src,
 //        in TD, strides (d_sb, d_st, 1); dg (2, B, T, 4H) f32, contiguous.
 //        Direction 0 walked t = 0 .. T-1 forward, so its step before t is
 //        t - 1; direction 1 walked T-1 .. 0, so its step before t is t + 1.
+// One direction (gridDim.y == 1, not FUSED): the same with xg and dxg
+//        (B, T, 4H), weights (1, ...), h, c, dh (B, T, H), dg (1, B, T, 4H);
+//        rev0 = 1 when that direction walked in reverse.
 template <typename T, typename TD, int BT, bool FUSED, bool COND>
 __global__ void __launch_bounds__(512)
 blstm_bwd_walk_kernel(const T* __restrict__ in, long long in_sb, long long in_st, int F,
@@ -75,7 +79,8 @@ blstm_bwd_walk_kernel(const T* __restrict__ in, long long in_sb, long long in_st
                       const T* __restrict__ w_hh_t, const T* __restrict__ w_hh,
                       const T* __restrict__ h, const T* __restrict__ c, long long s_sb,
                       long long s_st, const TD* __restrict__ dh, long long d_sb, long long d_st,
-                      float* __restrict__ dg, T* __restrict__ dxg, int B, int steps, int H) {
+                      float* __restrict__ dg, T* __restrict__ dxg, int B, int steps, int H,
+                      int rev0) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* hp_s = smem;               // (H, BT): h_prev of the step
@@ -85,6 +90,7 @@ blstm_bwd_walk_kernel(const T* __restrict__ in, long long in_sb, long long in_st
   float* x_s = dg_s + 4 * H * BT;   // (F, BT): x_t, FUSED only
 
   const int dir = blockIdx.y;
+  const bool rev = dir + rev0 == 1;
   const int b0 = blockIdx.x * BT;
   const int j = threadIdx.x;
   const int G = 4 * H;
@@ -95,8 +101,8 @@ blstm_bwd_walk_kernel(const T* __restrict__ in, long long in_sb, long long in_st
   for (int i = threadIdx.x; i < 2 * H * BT; i += blockDim.x) dh_s[i] = 0.f;  // dh_s, dc_s
 
   for (int s = steps - 1; s >= 0; --s) {
-    const int t = dir ? steps - 1 - s : s;
-    const int tp = dir ? t + 1 : t - 1;
+    const int t = rev ? steps - 1 - s : s;
+    const int tp = rev ? t + 1 : t - 1;
     const bool has_prev = s > 0;
     // stage h_prev (and x_t), coalesced along the feature axis; rows past B
     // and the state before the first step read as zeros
@@ -157,7 +163,7 @@ blstm_bwd_walk_kernel(const T* __restrict__ in, long long in_sb, long long in_st
 #pragma unroll
           for (int g = 0; g < 4; ++g) p[g * H] = dgv[g];
           if constexpr (!FUSED) {
-            T* q = dxg + ((size_t)b * steps + t) * 2 * G + dir * G + j;
+            T* q = dxg + ((size_t)b * steps + t) * gridDim.y * G + dir * G + j;
 #pragma unroll
             for (int g = 0; g < 4; ++g) q[g * H] = from_f32<T>(dgv[g]);
           }
@@ -179,19 +185,35 @@ blstm_bwd_walk_kernel(const T* __restrict__ in, long long in_sb, long long in_st
   }
 }
 
-constexpr int GM = 64, GN = 64, GK = 16;  // tile of the two products, 256 threads
+constexpr int GM = 64, GN = 64, GK = 16;  // tile of the tiled products, 256 threads
+
+// Element m of row k = (b, t) of direction d's A_d = [x | h_prev | 1]:
+//   m < F:          x[b, t, m], or the conditioned row's element with COND
+//                   (F = 0 for the gate-input forms)
+//   m < F + H:      h[b, t_prev, d H + m - F], zero at the walk's first step
+//                   (rev: the direction walked in reverse, t_prev = t + 1)
+//   m == F + H:     1.
+template <typename T, bool COND>
+__device__ __forceinline__ float a_value(const T* __restrict__ x, long long x_sb, long long x_st,
+                                         int F, const T* __restrict__ aux, int S,
+                                         const T* __restrict__ h, long long s_sb, long long s_st,
+                                         int H, int d, bool rev, int b, int t, int m, int steps) {
+  if (m < F) return row_value<T, COND>(x, x_sb, x_st, aux, S, F, b, t, m);
+  if (m < F + H) {
+    const int tp = rev ? t + 1 : t - 1;
+    return (tp >= 0 && tp < steps) ? to_f32(h[b * s_sb + tp * s_st + d * H + (m - F)]) : 0.f;
+  }
+  return 1.f;
+}
 
 // out[d] (M, N) = sum over the B*T rows k = (b, t) of A_d(k, m) dg[d](k, n),
-// N = 4H, M = F + H + with_bias:
-//   m < F:          x[b, t, m], or the conditioned row's element with COND
-//                   (F = 0 for the bidi form)
-//   m < F + H:      h[b, t_prev, d H + m - F], zero at the walk's first step
-//   m == F + H:     1, so that row F + H of out is db = sum_k dg.
+// N = 4H, M = F + H + with_bias (a_value), so that with the bias row, row
+// F + H of out is db = sum_k dg. gridDim.z directions; rev0 as in the walk.
 template <typename T, bool COND>
 __global__ void __launch_bounds__(256)
 wgrad_kernel(const T* __restrict__ x, long long x_sb, long long x_st, int F,
              const T* __restrict__ aux, int S, const T* __restrict__ h, long long s_sb, long long s_st, int H, int with_bias,
-             const float* __restrict__ dg, float* __restrict__ out, int B, int steps) {
+             const float* __restrict__ dg, float* __restrict__ out, int B, int steps, int rev0) {
   __shared__ __align__(16) float As[GK][GM];
   __shared__ __align__(16) float Bs[GK][GN];
   const int d = blockIdx.z;
@@ -200,6 +222,7 @@ wgrad_kernel(const T* __restrict__ x, long long x_sb, long long x_st, int F,
   const int M = F + H + with_bias;
   const int N = 4 * H;
   const long long K = (long long)B * steps;
+  const bool rev = d + rev0 == 1;
   const float* dgd = dg + (size_t)d * K * N;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -214,14 +237,7 @@ wgrad_kernel(const T* __restrict__ x, long long x_sb, long long x_st, int F,
       if (k < K && m < M) {
         const int b = (int)(k / steps);
         const int t = (int)(k - (long long)b * steps);
-        if (m < F) {
-          v = row_value<T, COND>(x, x_sb, x_st, aux, S, F, b, t, m);
-        } else if (m < F + H) {
-          const int tp = d ? t + 1 : t - 1;
-          if (tp >= 0 && tp < steps) v = to_f32(h[b * s_sb + tp * s_st + d * H + (m - F)]);
-        } else {
-          v = 1.f;
-        }
+        v = a_value<T, COND>(x, x_sb, x_st, F, aux, S, h, s_sb, s_st, H, d, rev, b, t, m, steps);
       }
       As[kk][mm] = v;
     }
@@ -333,9 +349,9 @@ int launch_walk(const void* in, long long in_sb, long long in_st, int F, const v
                 const void* bias, const void* w_hh_t, const void* w_hh, const void* h,
                 const void* c, long long s_sb, long long s_st, const void* dh, long long d_sb,
                 long long d_st, void* dg, void* dxg, int B, int steps, int H,
-                cudaStream_t stream) {
+                cudaStream_t stream, int ndir, int rev0) {
   using TD = typename std::conditional<FUSED, T, float>::type;
-  const dim3 grid((B + BT - 1) / BT, 2);
+  const dim3 grid((B + BT - 1) / BT, ndir);
   const int threads = ((H + 31) / 32) * 32;
   const size_t smem = sizeof(float) * BT * (7 * H + (FUSED ? F : 0));
   auto kernel = blstm_bwd_walk_kernel<T, TD, BT, FUSED, COND>;
@@ -347,22 +363,24 @@ int launch_walk(const void* in, long long in_sb, long long in_st, int F, const v
       static_cast<const T*>(w_ih_t), static_cast<const float*>(bias),
       static_cast<const T*>(w_hh_t), static_cast<const T*>(w_hh), static_cast<const T*>(h), static_cast<const T*>(c), s_sb,
       s_st, static_cast<const TD*>(dh), d_sb, d_st, static_cast<float*>(dg),
-      static_cast<T*>(dxg), B, steps, H);
+      static_cast<T*>(dxg), B, steps, H, rev0);
   return (int)cudaGetLastError();
 }
 
 // Everything after the walk: the weight and bias sums, and (FUSED) dx, or
-// with COND the unrounded dx of the conditioned rows.
+// with COND the unrounded dx of the conditioned rows. ndir and rev0 as for
+// the walk.
 template <typename T, bool FUSED, bool COND>
 int launch_sums(const void* x, long long x_sb, long long x_st, int F, const void* aux, int S,
                 const void* w_ih, const void* h, long long s_sb, long long s_st, const void* dg,
-                void* dw, void* dx, int B, int steps, int H, cudaStream_t stream) {
+                void* dw, void* dx, int B, int steps, int H, cudaStream_t stream, int ndir = 2,
+                int rev0 = 0) {
   const int M = F + H + (FUSED ? 1 : 0);
-  const dim3 wgrid((4 * H + GN - 1) / GN, (M + GM - 1) / GM, 2);
+  const dim3 wgrid((4 * H + GN - 1) / GN, (M + GM - 1) / GM, ndir);
   wgrad_kernel<T, COND><<<wgrid, 256, 0, stream>>>(
       static_cast<const T*>(x), x_sb, x_st, F, static_cast<const T*>(aux), S,
       static_cast<const T*>(h), s_sb, s_st, H, FUSED ? 1 : 0, static_cast<const float*>(dg),
-      static_cast<float*>(dw), B, steps);
+      static_cast<float*>(dw), B, steps, rev0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !FUSED) return (int)err;
   const long long K = (long long)B * steps;
@@ -375,19 +393,22 @@ int launch_sums(const void* x, long long x_sb, long long x_st, int F, const void
 
 // One layer's backward: the walk, then the sums. bf16 picks the storage
 // type (0 float, 1 bf16), bt the tile height (4 or 16). With COND, B counts
-// the conditioned rows and dx receives their unrounded gradient.
+// the conditioned rows and dx receives their unrounded gradient. Both
+// directions unless ndir is 1 (the gate-input form only; rev0 = 1 when that
+// direction walked in reverse).
 template <bool FUSED, bool COND>
 int backward(int bf16, int bt, const void* in, long long in_sb, long long in_st, int F,
              const void* aux, int S, const void* w_ih_t, const void* w_ih, const void* bias,
              const void* w_hh_t, const void* w_hh, const void* h, const void* c, long long s_sb,
              long long s_st, const void* dh, long long d_sb, long long d_st, void* dg, void* dxg,
-             void* dw, void* dx, int B, int steps, int H, void* stream_) {
+             void* dw, void* dx, int B, int steps, int H, void* stream_, int ndir = 2,
+             int rev0 = 0) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   int err = (int)cudaErrorInvalidValue;
 #define TSSEP_WALK(T, BT)                                                                     \
   err = launch_walk<T, BT, FUSED, COND>(in, in_sb, in_st, F, aux, S, w_ih_t, bias, w_hh_t, w_hh, \
                                         h, c, s_sb, s_st, dh, d_sb, d_st, dg, dxg, B, steps, H,  \
-                                        stream)
+                                        stream, ndir, rev0)
   if (bf16) {
     if (bt == 16) TSSEP_WALK(__nv_bfloat16, 16);
     if (bt == 4) TSSEP_WALK(__nv_bfloat16, 4);
@@ -401,9 +422,10 @@ int backward(int bf16, int bt, const void* in, long long in_sb, long long in_st,
   if (bf16)
     return launch_sums<__nv_bfloat16, FUSED, COND>(in, in_sb, in_st, FUSED ? F : 0, aux, S,
                                                    w_ih, h, s_sb, s_st, dg, dw, dx, B, steps,
-                                                   H, stream);
+                                                   H, stream, ndir, rev0);
   return launch_sums<float, FUSED, COND>(in, in_sb, in_st, FUSED ? F : 0, aux, S, w_ih, h,
-                                         s_sb, s_st, dg, dw, dx, B, steps, H, stream);
+                                         s_sb, s_st, dg, dw, dx, B, steps, H, stream, ndir,
+                                         rev0);
 }
 
 }  // namespace

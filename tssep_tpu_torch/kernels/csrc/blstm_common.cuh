@@ -1,8 +1,9 @@
-// Shared body of the three forward BLSTM kernels (blstm_fullfused_fwd.cu,
-// blstm_fullfused_cond_fwd.cu and blstm_bidi_fwd.cu): one bidirectional
-// LSTM layer, gate order i, f, g, o
-// (torch layout), carries and accumulation in f32, streamed tensors in the
-// storage type T (float or bf16).
+// Shared body of the five forward LSTM kernels (blstm_fullfused_fwd.cu,
+// blstm_fullfused_cond_fwd.cu, blstm_fullfused_spill_fwd.cu,
+// blstm_bidi_fwd.cu and lstm_fwd.cu): one bidirectional LSTM layer, or one
+// direction of it, gate order i, f, g, o (torch layout), carries and
+// accumulation in f32, streamed tensors in the storage type T (float or
+// bf16).
 //
 // Work split: one block per (batch tile of BT rows, direction). Thread j owns
 // hidden unit j, all four of its gates, for the BT rows of the tile, so the
@@ -108,13 +109,19 @@ __device__ __forceinline__ void accumulate(float (&acc)[4][BT], const float* src
 // All:   w_hh_t (2, H, 4H); h_out, c_out (B, T, 2H) with strides
 //        (out_sb, out_st, 1), forward direction in [0, H), reverse in [H, 2H),
 //        both in original time order. c_out may be null.
+// One direction (gridDim.y == 1): the same with 4H gate columns, w_hh_t
+//        (1, H, 4H) and outputs (B, T, H); rev0 = 1 walks it in reverse.
+// Spill:  cb_out (ndir, ceil(steps / spill), B, H), contiguous, receives the
+//        c carry entering every spill'th step of each walk, rounded to T
+//        (slot 0 is the zero state); null writes none.
 template <typename T, int BT, bool FUSED, bool COND>
 __global__ void __launch_bounds__(512)
 blstm_fwd_kernel(const T* __restrict__ in, long long in_sb, long long in_st, int F,
                  const T* __restrict__ aux, int S, const T* __restrict__ w_ih_t,
                  const float* __restrict__ bias,
                  const T* __restrict__ w_hh_t, T* __restrict__ h_out, T* __restrict__ c_out,
-                 long long out_sb, long long out_st, int B, int steps, int H) {
+                 long long out_sb, long long out_st, int B, int steps, int H, int rev0,
+                 T* __restrict__ cb_out, int spill) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* h_s = smem;            // (H, BT): h of the previous step, rounded to T
@@ -122,6 +129,7 @@ blstm_fwd_kernel(const T* __restrict__ in, long long in_sb, long long in_st, int
   float* x_s = c_s + H * BT;    // (F, BT): x_t of the tile, FUSED only
 
   const int dir = blockIdx.y;
+  const bool rev = dir + rev0 == 1;
   const int b0 = blockIdx.x * BT;
   const int j = threadIdx.x;
   const int G = 4 * H;
@@ -131,9 +139,17 @@ blstm_fwd_kernel(const T* __restrict__ in, long long in_sb, long long in_st, int
   for (int i = threadIdx.x; i < 2 * H * BT; i += blockDim.x) smem[i] = 0.f;
 
   for (int s = 0; s < steps; ++s) {
-    const int t = dir ? steps - 1 - s : s;
+    const int t = rev ? steps - 1 - s : s;
     if constexpr (FUSED) load_rows<T, BT, COND>(x_s, in, in_sb, in_st, aux, S, F, b0, B, t);
     __syncthreads();  // x_s and the previous step's h_s are complete
+
+    if (cb_out != nullptr && active && s % spill == 0) {
+      const int nblk = (steps + spill - 1) / spill;
+      T* cb = cb_out + ((size_t)(dir * nblk + s / spill) * B + b0) * H + j;
+#pragma unroll
+      for (int r = 0; r < BT; ++r)
+        if (b0 + r < B) cb[(size_t)r * H] = from_f32<T>(c_s[j * BT + r]);
+    }
 
     float acc[4][BT];
     if (active) {
@@ -180,12 +196,14 @@ blstm_fwd_kernel(const T* __restrict__ in, long long in_sb, long long in_st, int
   }
 }
 
-// Launches one layer on `stream`; returns the launch's cudaError_t.
+// Launches one layer (ndir directions) on `stream`; returns the launch's
+// cudaError_t.
 template <typename T, int BT, bool FUSED, bool COND>
 int launch(const void* in, long long in_sb, long long in_st, int F, const void* aux, int S,
            const void* w_ih_t, const void* bias, const void* w_hh_t, void* h_out, void* c_out,
-           long long out_sb, long long out_st, int B, int steps, int H, void* stream) {
-  const dim3 grid((B + BT - 1) / BT, 2);
+           long long out_sb, long long out_st, int B, int steps, int H, void* stream, int ndir,
+           int rev0, void* cb_out, int spill) {
+  const dim3 grid((B + BT - 1) / BT, ndir);
   const int threads = ((H + 31) / 32) * 32;
   const size_t smem = sizeof(float) * BT * (2 * H + (FUSED ? F : 0));
   auto kernel = blstm_fwd_kernel<T, BT, FUSED, COND>;
@@ -196,19 +214,23 @@ int launch(const void* in, long long in_sb, long long in_st, int F, const void* 
       static_cast<const T*>(in), in_sb, in_st, F, static_cast<const T*>(aux), S,
       static_cast<const T*>(w_ih_t), static_cast<const float*>(bias),
       static_cast<const T*>(w_hh_t), static_cast<T*>(h_out), static_cast<T*>(c_out), out_sb,
-      out_st, B, steps, H);
+      out_st, B, steps, H, rev0, static_cast<T*>(cb_out), spill);
   return (int)cudaGetLastError();
 }
 
 // Picks the storage type (0 float, 1 bf16) and the tile height (4 or 16).
+// Both directions unless ndir is 1 (then rev0 picks the direction); cb_out
+// and spill as for blstm_fwd_kernel.
 template <bool FUSED, bool COND>
 int dispatch(int bf16, int bt, const void* in, long long in_sb, long long in_st, int F,
              const void* aux, int S, const void* w_ih_t, const void* bias, const void* w_hh_t,
              void* h_out, void* c_out, long long out_sb, long long out_st, int B, int steps,
-             int H, void* stream) {
+             int H, void* stream, int ndir = 2, int rev0 = 0, void* cb_out = nullptr,
+             int spill = 1) {
 #define TSSEP_LAUNCH(T, BT)                                                                 \
   return launch<T, BT, FUSED, COND>(in, in_sb, in_st, F, aux, S, w_ih_t, bias, w_hh_t, h_out, \
-                                    c_out, out_sb, out_st, B, steps, H, stream)
+                                    c_out, out_sb, out_st, B, steps, H, stream, ndir, rev0,   \
+                                    cb_out, spill)
   if (bf16) {
     if (bt == 16) TSSEP_LAUNCH(__nv_bfloat16, 16);
     if (bt == 4) TSSEP_LAUNCH(__nv_bfloat16, 4);

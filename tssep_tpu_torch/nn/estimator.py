@@ -13,8 +13,10 @@ between the post-net layers draws from the caller's generator.
 and the first post-net layer as one conditioned layer
 (``RNNP.forward_conditioned``), where JAX's condition for it holds; else
 the conditioned (B, S, T, F) tensor is materialized. ``fullfuse`` (JAX
-``TSSEP_PALLAS_FULLFUSE``) picks the BLSTM kernels of every RNNP
-(``nn/rnnp.py``).
+``TSSEP_PALLAS_FULLFUSE``), ``spill`` (JAX ``TSSEP_PALLAS_SPILL``) and
+``bidi`` (JAX ``TSSEP_PALLAS_BIDI``) pick the BLSTM kernels of every RNNP
+(``nn/rnnp.py`` ``blstm_apply``); ``spill`` and ``bidi`` leave the
+conditioned layer as it is, as in JAX.
 
 From ``pre_net`` on, activations are kept in the storage dtype; the head and
 its outputs are float32.
@@ -68,7 +70,7 @@ class MaskEstimator(nn.Module):
                  num_averaged_permutations=1, input_normalizer=None,
                  aux_normalizer=None, explicit_vad=False,
                  storage_dtype=torch.bfloat16, cond_fuse=False, fullfuse=True,
-                 device='cuda'):
+                 spill=False, bidi=True, device='cuda'):
         super().__init__()
         device = resolve_device(device)
         if aux_net is not None:
@@ -101,7 +103,7 @@ class MaskEstimator(nn.Module):
         self.cond_fuse = cond_fuse
 
         rnnp = dict(dropout=dropout, storage_dtype=storage_dtype,
-                    fullfuse=fullfuse, device=device)
+                    fullfuse=fullfuse, spill=spill, bidi=bidi, device=device)
         if pre_net == 'RNNP':
             self.pre_net = RNNP(idim, elayers=1, cdim=units, hdim=odim, **rnnp)
         elif pre_net in (None, False):

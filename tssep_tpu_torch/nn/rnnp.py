@@ -1,10 +1,11 @@
-"""Bidirectional LSTM with projection (RNNP): port of ``tssep_tpu/nn/rnnp.py``.
+"""LSTM with projection (RNNP): port of ``tssep_tpu/nn/rnnp.py``.
 
-``[BLSTM -> Linear (-> Dropout -> Tanh)] x elayers`` with the nonlinearity
+``[(B)LSTM -> Linear (-> Dropout -> Tanh)] x elayers`` with the nonlinearity
 dropped after the last layer, on rank-2/3/4 inputs (speakers folded into the
-batch axis). Parameters keep torch's names and layouts (``weight_ih_l0`` is
-(4H, I), gate order i, f, g, o), so the JAX package's named parameters load
-by name.
+batch axis); ``typ`` 'blstm' (bidirectional) or 'lstm' (one direction).
+Parameters keep torch's names and layouts (``weight_ih_l0`` is (4H, I), gate
+order i, f, g, o, ``_reverse`` for the second direction), so the JAX
+package's named parameters load by name.
 
 Every layer runs through the kernels of ``tssep_tpu_torch.kernels.blstm``,
 chosen as ``blstm_apply`` chooses (``tssep_tpu/nn/rnnp.py:311-342``). With
@@ -23,6 +24,19 @@ Without ``fullfuse`` every layer goes the way of ``blstm_apply_fused_bidi``
 ``BLSTMBidiCore`` (JAX ``_bi_core``, backward ``_bi_core_bwd`` :555) over the
 gate inputs xg, whose backward kernel ``blstm_bidi_bwd`` gives dxg in the
 storage dtype and dW_hh in float32.
+
+``spill`` (JAX ``TSSEP_PALLAS_SPILL``) runs every fully fused layer through
+``blstm_fullfused_spill_fwd`` and, for a gradient, ``BLSTMLayerFullFusedSpill``
+(JAX ``blstm_layer_fullfused_spill``, :1473-1627), which saves x, h and the
+c carry of every ``SPILL_BLOCK``'th step instead of the c sequence; its
+backward ``blstm_fullfused_spill_bwd`` rebuilds c from those boundaries.
+
+One direction: ``bidi=False`` (JAX ``TSSEP_PALLAS_BIDI=0``) runs each
+direction of a layer that is not fully fused on its own, and a
+unidirectional RNNP (``typ='lstm'``) its one direction, the way of
+``lstm_fused`` (JAX :319-361): the input projection in autograd, then
+``LSTMCore`` (JAX ``_lstm_core``, :255-316) over that direction's gate
+inputs, through ``lstm_fwd`` / ``lstm_bwd``.
 
 ``RNNP.forward_conditioned`` runs a one-layer block on the 'mul'-conditioned
 input ``xs[:, None] * aux[:, :, None]`` through ``blstm_fullfused_cond_fwd``
@@ -47,12 +61,16 @@ from tssep_tpu_torch.kernels.blstm import (blstm_bidi_bwd, blstm_bidi_fwd,
                                            blstm_fullfused_bwd,
                                            blstm_fullfused_cond_bwd,
                                            blstm_fullfused_cond_fwd,
-                                           blstm_fullfused_fwd)
+                                           blstm_fullfused_fwd,
+                                           blstm_fullfused_spill_bwd,
+                                           blstm_fullfused_spill_fwd,
+                                           lstm_bwd, lstm_fwd)
 from tssep_tpu_torch.nn.init import linear_init_, lstm_init_
 from tssep_tpu_torch.utils.device import resolve_device
 
 __all__ = ['BLSTM', 'RNNP', 'blstm_apply', 'BLSTMLayerFullFused',
-           'BLSTMLayerFused', 'BLSTMLayerFullFusedCond', 'BLSTMBidiCore',
+           'BLSTMLayerFused', 'BLSTMLayerFullFusedCond',
+           'BLSTMLayerFullFusedSpill', 'BLSTMBidiCore', 'LSTMCore',
            'FULLFUSE_MAX_INPUT', 'PARAM_NAMES', 'inverted_dropout']
 
 #: Widest input the fully fused kernel takes (``tssep_tpu/nn/rnnp.py:286``).
@@ -67,16 +85,20 @@ PARAM_NAMES = tuple(name + suffix for suffix in _SUFFIXES
 
 
 class BLSTM(nn.Module):
-    """One bidirectional LSTM layer's parameters, named as ``torch.nn.LSTM``
-    names them. Float32 master weights; :func:`blstm_apply` runs it."""
+    """One (bidirectional) LSTM layer's parameters, named as
+    ``torch.nn.LSTM`` names them: without ``bidirectional``, only the
+    forward direction's four. Float32 master weights; :func:`blstm_apply`
+    runs it."""
 
-    def __init__(self, input_size, hidden_size, *, device='cuda'):
+    def __init__(self, input_size, hidden_size, *, bidirectional=True,
+                 device='cuda'):
         super().__init__()
         device = resolve_device(device)
         self.input_size = input_size
         self.hidden_size = hidden_size
+        self.bidirectional = bidirectional
         G = 4 * hidden_size
-        for suffix in _SUFFIXES:
+        for suffix in _SUFFIXES[:2 if bidirectional else 1]:
             for name, shape in (('weight_ih_l0', (G, input_size)),
                                 ('weight_hh_l0', (G, hidden_size)),
                                 ('bias_ih_l0', (G,)), ('bias_hh_l0', (G,))):
@@ -85,7 +107,8 @@ class BLSTM(nn.Module):
 
 
 def _layer_params(layer):
-    return tuple(getattr(layer, name) for name in PARAM_NAMES)
+    return tuple(getattr(layer, name)
+                 for name in PARAM_NAMES[:8 if layer.bidirectional else 4])
 
 
 def _stacked(params):
@@ -219,6 +242,34 @@ class BLSTMLayerFullFusedCond(torch.autograd.Function):
             None,)
 
 
+class BLSTMLayerFullFusedSpill(torch.autograd.Function):
+    """One layer through ``blstm_fullfused_spill_fwd`` /
+    ``blstm_fullfused_spill_bwd`` (JAX ``blstm_layer_fullfused_spill``):
+    as :class:`BLSTMLayerFullFused`, but it saves x, h and the c boundaries,
+    not the c sequence."""
+
+    @staticmethod
+    def forward(ctx, x, *args):
+        *params, storage_dtype = args
+        xs, w_ih_t, w_hh_t, bias = _fullfused_prep(x, params, storage_dtype)
+        h, cb = blstm_fullfused_spill_fwd(xs, w_ih_t, w_hh_t, bias,
+                                          with_boundaries=True)
+        ctx.save_for_backward(xs, w_ih_t, w_hh_t, bias, h, cb)
+        ctx.x_dtype = x.dtype
+        return h
+
+    @staticmethod
+    def backward(ctx, dout):
+        xs, w_ih_t, w_hh_t, bias, h, cb = ctx.saved_tensors
+        # dh streams in the storage dtype, as ``_ffs_layer_bwd``'s pad_ct
+        dh = dout.to(xs.dtype).contiguous()
+        dx, dw_ih_t, dw_hh_t, db = blstm_fullfused_spill_bwd(
+            xs, w_ih_t, w_hh_t, bias, h, cb, dh)
+        grads = _to_params(dw_ih_t.transpose(1, 2), dw_hh_t.transpose(1, 2),
+                           db)
+        return (dx.to(ctx.x_dtype),) + grads + (None,)
+
+
 class BLSTMBidiCore(torch.autograd.Function):
     """The two recurrences of a layer from gate inputs through
     ``blstm_bidi_fwd`` / ``blstm_bidi_bwd`` (JAX ``_bi_core``).
@@ -242,6 +293,30 @@ class BLSTMBidiCore(torch.autograd.Function):
         return dxg, dw_hh_t, None
 
 
+class LSTMCore(torch.autograd.Function):
+    """One direction's recurrence from gate inputs through ``lstm_fwd`` /
+    ``lstm_bwd`` (JAX ``_lstm_core``). ``apply(xg, w_hh_t, storage_dtype,
+    reverse)``: xg (B, T, 4H) in the storage dtype, w_hh_t (H, 4H) float32
+    master weights, cast inside. The backward returns dxg in the storage
+    dtype and dW_hh^T in float32, as ``BLSTMBidiCore`` does."""
+
+    @staticmethod
+    def forward(ctx, xg, w_hh_t, storage_dtype, reverse):
+        w = w_hh_t.to(storage_dtype).contiguous()
+        h, c = lstm_fwd(xg, w, reverse=reverse, with_cell=True)
+        ctx.save_for_backward(xg, w, h, c)
+        ctx.reverse = reverse
+        return h
+
+    @staticmethod
+    def backward(ctx, dout):
+        xg, w, h, c = ctx.saved_tensors
+        # dh in float32, as ``_lstm_core_bwd`` casts its cotangents
+        dxg, dw_hh_t = lstm_bwd(xg, w, h, c, dout.float().contiguous(),
+                                reverse=ctx.reverse)
+        return dxg, dw_hh_t, None, None
+
+
 def _bidi_core_layer(x, params, storage_dtype):
     """``blstm_apply_fused_bidi`` under autograd: the projection recorded
     by autograd, the recurrences by :class:`BLSTMBidiCore`."""
@@ -250,54 +325,91 @@ def _bidi_core_layer(x, params, storage_dtype):
     return BLSTMBidiCore.apply(xg, w_hh.transpose(1, 2), storage_dtype)
 
 
+def _direction(x, params, storage_dtype, reverse):
+    """One direction the way of ``lstm_fused``: the projection in autograd,
+    the recurrence by :class:`LSTMCore` where autograd records, else by
+    ``lstm_fwd``. params: that direction's four tensors in ``PARAM_NAMES``
+    order -> (B, T, H) in ``storage_dtype``."""
+    w_ih, w_hh, b_ih, b_hh = params
+    xg = nn.functional.linear(x.to(storage_dtype), w_ih.to(storage_dtype),
+                              (b_ih + b_hh).to(storage_dtype))
+    if _records_grad(xg, w_hh):
+        return LSTMCore.apply(xg, w_hh.t(), storage_dtype, reverse)
+    h, _ = lstm_fwd(xg, w_hh.t().to(storage_dtype).contiguous(),
+                    reverse=reverse)
+    return h
+
+
 def _records_grad(*tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def blstm_apply(layer: BLSTM, x, storage_dtype, fullfuse=True):
-    """x: (B, T, I) -> (B, T, 2H) in ``storage_dtype``. Where autograd
-    records, the layer runs as one of the Functions and saves c for its
-    backward; elsewhere (serving) the forward kernel writes h only.
-    ``fullfuse=False`` takes the gate-input path for every width."""
+def blstm_apply(layer: BLSTM, x, storage_dtype, fullfuse=True, spill=False,
+                bidi=True):
+    """x: (B, T, I) -> (B, T, 2H), or (B, T, H) for a unidirectional layer,
+    in ``storage_dtype``; the kernels chosen as JAX's ``blstm_apply``
+    chooses them (``tssep_tpu/nn/rnnp.py:311-342``). Where autograd
+    records, the layer runs as one of the Functions and saves what its
+    backward reads; elsewhere (serving) the forward kernel writes h only.
+    A bidirectional layer of input width up to ``FULLFUSE_MAX_INPUT`` runs
+    fully fused with ``fullfuse``, through the spill pair with ``spill``
+    too; any other takes the gate-input path, both directions in one kernel
+    with ``bidi``, else each on its own (``lstm_fwd``)."""
     params = _layer_params(layer)
-    # xg computed outside the kernel, as for inputs too wide to fuse
-    gate_inputs = not fullfuse or x.shape[-1] > FULLFUSE_MAX_INPUT
-    if _records_grad(x, *params):
+    if not layer.bidirectional:
+        return _direction(x, params, storage_dtype, False)
+    grad = _records_grad(x, *params)
+    if fullfuse and x.shape[-1] <= FULLFUSE_MAX_INPUT:
+        if grad:
+            fn = BLSTMLayerFullFusedSpill if spill else BLSTMLayerFullFused
+            return fn.apply(x, *params, storage_dtype)
+        fwd = blstm_fullfused_spill_fwd if spill else blstm_fullfused_fwd
+        h, _ = fwd(*_fullfused_prep(x, params, storage_dtype))
+        return h
+    # xg computed outside the kernel
+    if not bidi:
+        return torch.cat([_direction(x, params[:4], storage_dtype, False),
+                          _direction(x, params[4:], storage_dtype, True)],
+                         dim=-1)
+    if grad:
         if not fullfuse:
             return _bidi_core_layer(x, params, storage_dtype)
-        fn = BLSTMLayerFused if gate_inputs else BLSTMLayerFullFused
-        return fn.apply(x, *params, storage_dtype)
-    if gate_inputs:
-        xg, _, w_hh_t = _bidi_prep(x, params, storage_dtype)
-        h, _ = blstm_bidi_fwd(xg, w_hh_t)
-    else:
-        h, _ = blstm_fullfused_fwd(*_fullfused_prep(x, params, storage_dtype))
+        return BLSTMLayerFused.apply(x, *params, storage_dtype)
+    xg, _, w_hh_t = _bidi_prep(x, params, storage_dtype)
+    h, _ = blstm_bidi_fwd(xg, w_hh_t)
     return h
 
 
 class RNNP(nn.Module):
-    """RNN-with-projection block: [BLSTM -> Linear (-> Tanh)] x elayers.
+    """RNN-with-projection block: [(B)LSTM -> Linear (-> Tanh)] x elayers.
 
-    Only the bidirectional LSTM arm of the JAX ``RNNP`` is ported. Dropout
-    between the layers runs in training, with its draws from a generator.
+    The LSTM arms of the JAX ``RNNP`` are ported: ``typ`` 'blstm' and
+    'lstm'; the GRU arms ('gru', 'bgru') are not. Dropout between the layers
+    runs in training, with its draws from a generator. ``fullfuse``,
+    ``spill`` and ``bidi`` choose the kernels (:func:`blstm_apply`).
     """
 
     def __init__(self, idim, elayers=1, cdim=300, hdim=320, dropout=0.0,
                  typ='blstm', *, storage_dtype=torch.bfloat16, fullfuse=True,
-                 device='cuda'):
+                 spill=False, bidi=True, device='cuda'):
         super().__init__()
-        if typ != 'blstm':
-            raise NotImplementedError(f'RNNP typ={typ!r}: only the '
-                                      f"bidirectional LSTM ('blstm') is ported")
+        if typ not in ('blstm', 'lstm'):
+            raise NotImplementedError(f"RNNP typ={typ!r}: only the LSTM arms "
+                                      f"('blstm', 'lstm') are ported")
         device = resolve_device(device)
         self.idim, self.elayers, self.cdim, self.hdim = idim, elayers, cdim, hdim
         self.dropout = dropout
+        self.typ = typ
+        self.bidirectional = typ == 'blstm'
         self.storage_dtype = storage_dtype
-        self.fullfuse = fullfuse
+        self.fullfuse, self.spill, self.bidi = fullfuse, spill, bidi
+        scale = 2 if self.bidirectional else 1
         for i in range(elayers):
             inputdim = idim if i == 0 else hdim
-            self.add_module(f'lstm{i}', BLSTM(inputdim, cdim, device=device))
-            self.add_module(f'proj{i}', nn.Linear(2 * cdim, hdim,
+            self.add_module(f'lstm{i}', BLSTM(
+                inputdim, cdim, bidirectional=self.bidirectional,
+                device=device))
+            self.add_module(f'proj{i}', nn.Linear(scale * cdim, hdim,
                                                   device=device))
 
     def init_params(self, generator: torch.Generator):
@@ -316,7 +428,7 @@ class RNNP(nn.Module):
         h = x.reshape((-1,) + x.shape[-2:])
         for i in range(self.elayers):
             h = blstm_apply(getattr(self, f'lstm{i}'), h, self.storage_dtype,
-                            self.fullfuse)
+                            self.fullfuse, self.spill, self.bidi)
             h = self._project(i, h)
             if i < self.elayers - 1:
                 if training:
@@ -334,10 +446,11 @@ class RNNP(nn.Module):
         * aux[:, :, None])``, with the product formed inside the kernels
         (JAX ``RNNP.apply_conditioned``, ``tssep_tpu/nn/rnnp.py:414-435``).
         xs: (B, T, idim); aux: (B, S, idim) -> (B, S, T, hdim) in the
-        storage dtype. Needs ``elayers == 1``."""
-        if self.elayers != 1:
-            raise ValueError(f'forward_conditioned needs elayers == 1, got '
-                             f'{self.elayers}')
+        storage dtype. Needs ``elayers == 1`` and a bidirectional layer;
+        ``spill`` and ``bidi`` do not apply, as in JAX."""
+        if self.elayers != 1 or not self.bidirectional:
+            raise ValueError(f'forward_conditioned needs elayers == 1 and '
+                             f"typ='blstm', got {self.elayers}, {self.typ!r}")
         params = _layer_params(self.lstm0)
         if _records_grad(xs, aux, *params):
             h = BLSTMLayerFullFusedCond.apply(xs, aux, *params,

@@ -56,7 +56,8 @@ class Model(nn.Module):
 
     @classmethod
     def from_config(cls, config: dict, *, storage_dtype=torch.bfloat16,
-                    device='cuda', cond_fuse=False, fullfuse=True):
+                    device='cuda', cond_fuse=False, fullfuse=True,
+                    spill=False, bidi=True):
         """Build from a config dict of the JAX package's form, e.g. the
         flagship of ``bench.py:98-106``. ``fe`` holds the STFT settings and
         ``mask_estimator`` the estimator's keyword arguments; ``idim``,
@@ -65,12 +66,17 @@ class Model(nn.Module):
         ``{'factory': 'LogMAE', ...}`` (the default). ``reader`` configures
         the data source, which is not part of the model.
 
-        ``cond_fuse`` and ``fullfuse`` choose kernels, as the JAX package's
-        ``TSSEP_PALLAS_CONDFUSE`` and ``TSSEP_PALLAS_FULLFUSE`` do
-        (``MaskEstimator``): ``cond_fuse=True`` forms the 'mul' conditioning
-        inside the first post-net layer's kernels, ``fullfuse=False`` runs
-        every BLSTM layer from gate inputs computed outside. Neither changes
-        the parameters, so the same named arrays load
+        ``cond_fuse``, ``fullfuse``, ``spill`` and ``bidi`` choose kernels,
+        as the JAX package's ``TSSEP_PALLAS_CONDFUSE``,
+        ``TSSEP_PALLAS_FULLFUSE``, ``TSSEP_PALLAS_SPILL`` and
+        ``TSSEP_PALLAS_BIDI`` do (``MaskEstimator``): ``cond_fuse=True``
+        forms the 'mul' conditioning inside the first post-net layer's
+        kernels; ``fullfuse=False`` runs every BLSTM layer from gate inputs
+        computed outside; ``spill=True`` runs every fully fused layer
+        through the spill pair, which keeps the c carry of every 8th step
+        for the backward instead of the c sequence; ``bidi=False`` runs
+        each direction of a layer that takes gate inputs on its own. None
+        changes the parameters, so the same named arrays load
         (``compat/from_jax.py``) whatever the switches."""
         unknown = set(config) - {'fe', 'reader', 'mask_estimator', 'loss'}
         if unknown:
@@ -81,7 +87,7 @@ class Model(nn.Module):
         me_cfg.update(config.get('mask_estimator', {}))
         estimator = MaskEstimator(**me_cfg, storage_dtype=storage_dtype,
                                   cond_fuse=cond_fuse, fullfuse=fullfuse,
-                                  device=device)
+                                  spill=spill, bidi=bidi, device=device)
         return cls(fe, estimator, loss_from_config(config.get('loss')),
                    device=device)
 
