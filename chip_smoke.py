@@ -8,13 +8,18 @@ Phases, each of which must pass:
 
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: the CUDA kernels, one ``nvcc`` per source started together, with
-   ``-Xptxas -v``'s registers and shared memory;
+   ``-Xptxas -v``'s registers, shared memory and spills, summed up for the
+   clustered kernels of the fully fused pair's bfloat16 route;
 3. kernels: each kernel against its plain PyTorch version on the card, in
    float32 and in bfloat16 storage, with max error, kernel time, plain time
    and bound: the forward kernels at a ragged small shape, at the shapes of
    a served request (batch 16) and at the flagship training shapes (batch
    256); the backward kernels at a ragged shape and at the training shapes
-   of batch 16 and of batch 256;
+   of batch 16 and of batch 256. The fully fused pair runs, in bfloat16, the
+   clustered Hopper kernels (``csrc/blstm_cluster_*.cuh``): the forward is
+   timed beside the first design's kernel doing the same work (the spill
+   forward without boundaries), the backward by its four launches (gate
+   product, walk, weight sums, dx), each between CUDA events;
 4. serving: the flagship TS-SEP model (``bench.py:98-106``, random weights
    from a seed) answers 3 requests of batch 16 through the kernels, which the
    launch counters prove, and its masks and waveforms agree with the same
@@ -57,6 +62,7 @@ import sys
 sys.dont_write_bytecode = True        # write nothing into the checkout
 
 import contextlib  # noqa: E402
+import dataclasses  # noqa: E402
 import json        # noqa: E402
 import math        # noqa: E402
 import subprocess  # noqa: E402
@@ -105,6 +111,21 @@ SERVE_ATOL = {F32: 1e-4, BF16: 5e-2}
 #: to bf16, where such a difference flips a rounding now and then: one bf16
 #: ulp, 2^-8 of the value.
 BWD_RTOL = {F32: 1e-4, BF16: 1e-2}
+#: The fully fused pair's bfloat16 route (the clustered kernels): forward
+#: max abs error of h and c, backward each output's error over its peak. One
+#: bf16 ulp of c (2^-6 between 2 and 4) flipped by another f32 sum order;
+#: dx rounded to bf16 per direction, the gate gradients entering the tensor
+#: cores as a two-term bf16 split (relative error ~2^-16).
+CLUSTER_TOL = {'blstm_fullfused_fwd': 1.6e-2, 'blstm_fullfused_bwd': 5e-3}
+#: The sources of the kernels each wrapper launches, by storage type.
+DESIGNS = {
+    'blstm_fullfused_fwd': {
+        'bfloat16': 'tssep_tpu_torch/kernels/csrc/blstm_cluster_fwd.cuh',
+        'float32': 'tssep_tpu_torch/kernels/csrc/blstm_common.cuh'},
+    'blstm_fullfused_bwd': {
+        'bfloat16': 'tssep_tpu_torch/kernels/csrc/blstm_cluster_bwd.cuh',
+        'float32': 'tssep_tpu_torch/kernels/csrc/blstm_bwd_common.cuh'},
+}
 #: One training step, kernels against plain versions: the loss (abs) and
 #: each parameter's gradient (max abs error over max abs value). float32:
 #: f32 sums in another order through the forward, the ISTFT and the
@@ -251,6 +272,24 @@ def phase_device():
     check(torch.cuda.device_count() >= 1, 'a CUDA device')
 
 
+#: Kernel names of the fully fused pair's bfloat16 route, as ptxas and the
+#: profiler show them.
+CLUSTER_KERNELS = ('cluster_fwd_kernel', 'cluster_walk_kernel', 'GatesOp',
+                   'WgradOp', 'DxOp', 'splitk_add_kernel')
+
+
+def _ptxas_summary(log_text):
+    """(kernel, its ptxas lines) for each clustered kernel of the build."""
+    lines = [line.strip() for line in log_text.splitlines()]
+    for i, line in enumerate(lines):
+        if 'Compiling entry function' in line and any(
+                k in line for k in CLUSTER_KERNELS):
+            name = next(k for k in CLUSTER_KERNELS if k in line)
+            tail = [t for t in lines[i + 1:i + 4]
+                    if 'registers' in t or 'spill' in t or 'smem' in t]
+            yield name, line.split("'")[1] if "'" in line else line, tail
+
+
 def phase_build():
     result = _build.build()
     log(f'build: {len(_build._sources())} nvcc calls side by side and a link, '
@@ -258,6 +297,9 @@ def phase_build():
     for line in result.log.splitlines():
         if line.strip():
             log(f'  {line.strip()}')
+    log('ptxas, clustered kernels of the fully fused pair (bf16 route):')
+    for name, entry, tail in _ptxas_summary(result.log):
+        log(f'  {name}: {entry}: {" | ".join(tail)}')
     _build.library()
 
 
@@ -272,10 +314,10 @@ def _max_err(got, want):
 
 
 def _case(name, dtype, run, run_plain, outputs, plain_outputs, flops,
-          nbytes, library=None, library_label='cuDNN'):
+          nbytes, library=None, library_label='cuDNN', tol=None):
     err = _max_err(outputs, plain_outputs)
-    check(err <= KERNEL_ATOL[dtype],
-          f'{name} max abs error {err:.3g} > {KERNEL_ATOL[dtype]}')
+    tol = KERNEL_ATOL[dtype] if tol is None else tol
+    check(err <= tol, f'{name} max abs error {err:.3g} > {tol}')
     ms = cuda_ms(run)
     plain_ms = cuda_ms(run_plain, reps=1)
     library_ms = None
@@ -311,14 +353,24 @@ def fullfused_case(label, B, T, F, H, dtype, gen):
     lstm = torch.nn.LSTM(F, H, bidirectional=True, batch_first=True,
                          device='cuda', dtype=dtype)
     lstm.flatten_parameters()
-    return _case(
+    row = _case(
         f'blstm_fullfused_fwd {label} B={B} T={T} F={F} H={H}', dtype,
         lambda: kb.blstm_fullfused_fwd(x, w_ih_t, w_hh_t, bias),
         lambda: kb.blstm_fullfused_fwd_plain(x, w_ih_t, w_hh_t, bias),
         got, want, flops=2 * B * T * 2 * (F + H) * 4 * H,
         nbytes=size * (B * T * F + 2 * (F + H) * 4 * H + B * T * 2 * H)
         + 4 * 2 * 4 * H,
-        library=lambda: lstm(x))
+        library=lambda: lstm(x),
+        tol=CLUSTER_TOL['blstm_fullfused_fwd'] if dtype == BF16 else None)
+    row['design'] = DESIGNS['blstm_fullfused_fwd'][row['dtype']]
+    if dtype == BF16:
+        # the first design's kernel on the same work: the spill forward
+        # writes h only, without boundaries, as the fully fused one did
+        row['first_design_ms'] = cuda_ms(
+            lambda: kb.blstm_fullfused_spill_fwd(x, w_ih_t, w_hh_t, bias))
+        row['geometry'] = dataclasses.asdict(
+            kb._geometry('fwd', B, F, H, x.device))
+    return row
 
 
 def spill_case(label, B, T, F, H, dtype, gen):
@@ -422,22 +474,29 @@ def cuda_ms_once(fn):
     return start.elapsed_time(end), out
 
 
-def bwd_bound(rec_flops, grad_flops, nbytes, dtype):
+def bwd_bound(rec_flops, grad_flops, nbytes, dtype, split=False):
     """Least time in ms of a backward: the gate recompute's operations run
     on storage-type operands, the gradient products on float32 ones (as in
-    the TPU backward), each over its peak; or the bytes over HBM."""
-    t_ops = rec_flops / PEAK_FLOPS[dtype] + grad_flops / PEAK_FLOPS[F32]
+    the TPU backward), each over its peak; or the bytes over HBM. With
+    ``split`` (the fully fused pair's bf16 route) the gradient products run
+    as they do there: each f32 operand a two-term bf16 split on the tensor
+    cores, twice the operations at the bf16 peak."""
+    if split:
+        t_ops = (rec_flops + 2 * grad_flops) / PEAK_FLOPS[BF16]
+    else:
+        t_ops = rec_flops / PEAK_FLOPS[dtype] + grad_flops / PEAK_FLOPS[F32]
     t_bytes = nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             'operations' if t_ops >= t_bytes else 'bytes')
 
 
 def _bwd_case(name, dtype, run, run_plain, out_names, bound_, library=None,
-              library_label='cuDNN backward', split=False):
+              library_label='cuDNN backward', split=False, tol=None):
     """Kernel against plain version, each output's error over its peak;
     the plain version is timed once, by the run that gives the reference.
     ``library`` makes the yardstick's call; ``split`` adds one call's device
-    time by kernel (:func:`_device_split`)."""
+    time by kernel (:func:`_device_split`); ``tol`` replaces
+    ``BWD_RTOL[dtype]``."""
     plain_ms, want = cuda_ms_once(run_plain)
     got = run()
     errs = {}
@@ -447,8 +506,8 @@ def _bwd_case(name, dtype, run, run_plain, out_names, bound_, library=None,
         errs[label] = {'max_abs_err': err, 'peak': peak,
                        'rel': err / peak if peak else err}
     rel = max(e['rel'] for e in errs.values())
-    check(rel <= BWD_RTOL[dtype],
-          f'{name} max error over peak {rel:.3g} > {BWD_RTOL[dtype]}')
+    tol = BWD_RTOL[dtype] if tol is None else tol
+    check(rel <= tol, f'{name} max error over peak {rel:.3g} > {tol}')
     del got, want
     ms = cuda_ms(run)
     library_ms = None
@@ -470,10 +529,11 @@ def _bwd_case(name, dtype, run, run_plain, out_names, bound_, library=None,
 
 
 #: The kernels of the CUDA sources, longest name first where one name holds
-#: another.
+#: another; the clustered route's products by their operation's name.
 _KERNEL_NAMES = ('spill_walk_kernel', 'cell_rebuild_kernel', 'gates_kernel',
                  'blstm_bwd_walk_kernel', 'wgrad_kernel', 'cond_daux_kernel',
-                 'cond_dx_kernel', 'dx_kernel', 'blstm_fwd_kernel')
+                 'cond_dx_kernel', 'dx_kernel', 'blstm_fwd_kernel',
+                 *CLUSTER_KERNELS)
 
 
 def _device_events(prof):
@@ -528,18 +588,52 @@ def fullfused_bwd_case(label, B, T, F, H, dtype, gen):
     rows = B * T
     # operations: gate recompute 2 rows 2 dirs (F + H) 4H on storage
     # operands; dh (4H H), weight and bias sums ((F + H + 1) 4H) and dx
-    # (4H F) on f32 ones. bytes: x, h, c, dh and the weights read once, dx
-    # and the weight gradients written once (f32).
+    # (4H F) on f32 ones, in bf16 storage each as two bf16 products (the
+    # split). bytes: x, h, c, dh and the weights read once, dx and the
+    # weight gradients written once (f32).
     rec = 2 * rows * 2 * (F + H) * 4 * H
     grad = 2 * rows * 2 * (4 * H * H + (F + H + 1) * 4 * H + 4 * H * F)
     nbytes = (size * (rows * F + 3 * rows * 2 * H + 2 * (F + H) * 4 * H)
               + 4 * (2 * 4 * H + rows * F + 2 * (F + H + 1) * 4 * H))
-    return _bwd_case(
+    row = _bwd_case(
         f'blstm_fullfused_bwd {label} B={B} T={T} F={F} H={H}', dtype,
         lambda: kb.blstm_fullfused_bwd(*args),
         lambda: kb.blstm_fullfused_bwd_plain(*args),
-        ('dx', 'dw_ih', 'dw_hh', 'db'), bwd_bound(rec, grad, nbytes, dtype),
-        library=lambda: _cudnn_bwd(x, dh, H), split=label.endswith('birnn0'))
+        ('dx', 'dw_ih', 'dw_hh', 'db'),
+        bwd_bound(rec, grad, nbytes, dtype, split=dtype == BF16),
+        library=lambda: _cudnn_bwd(x, dh, H), split=label.endswith('birnn0'),
+        tol=CLUSTER_TOL['blstm_fullfused_bwd'] if dtype == BF16 else None)
+    row['design'] = DESIGNS['blstm_fullfused_bwd'][row['dtype']]
+    if dtype == BF16:
+        row['parts_ms'] = _bwd_parts_ms(args)
+        row['geometry'] = dataclasses.asdict(
+            kb._geometry('bwd', B, F, H, x.device))
+    return row
+
+
+def _bwd_parts_ms(args):
+    """The bf16 backward's four parts, each timed alone between CUDA
+    events on the same workspace (the walk on the gate product's output,
+    the sums and dx on the walk's); 'wgrad' holds the weight sums' product
+    and, where it cuts the rows into ranges, ``splitk_add_kernel``'s sum of
+    their partials."""
+    x, w_ih_t, w_hh_t, bias, h, c, dh = args
+    B, T, F = x.shape
+    H = w_hh_t.shape[1]
+    out = (torch.empty(2, B, T, 4 * H, device='cuda'),
+           torch.empty(2, F + H + 1, 4 * H, device='cuda'),
+           torch.empty(B, T, F, device='cuda'))
+    parts = {}
+    for name, bit in kb.FULLFUSED_BWD_PARTS.items():
+        if name == 'walk':   # the walk overwrites the pre-activations
+            gates = kb.FULLFUSED_BWD_PARTS['gates']
+            total = cuda_ms(lambda: kb._fullfused_bwd_cluster(
+                *args, parts=gates | bit, out=out))
+            parts[name] = total - parts['gates']
+        else:
+            parts[name] = cuda_ms(lambda: kb._fullfused_bwd_cluster(
+                *args, parts=bit, out=out))
+    return parts
 
 
 def spill_bwd_case(label, B, T, F, H, dtype, gen):
@@ -866,12 +960,14 @@ def _train_agreement(model, batch, dtype, reference=None,
             'max_rel_grad_err': rel[worst], 'worst_param': worst}
 
 
-_STEP_KERNELS = {'forward kernels': ('blstm_fwd_kernel',),
+_STEP_KERNELS = {'forward kernels': ('blstm_fwd_kernel', 'cluster_fwd_kernel'),
                  'backward kernels': ('blstm_bwd_walk_kernel', 'wgrad_kernel',
                                       'dx_kernel', 'cond_daux_kernel',
                                       'cond_dx_kernel', 'gates_kernel',
                                       'cell_rebuild_kernel',
-                                      'spill_walk_kernel')}
+                                      'spill_walk_kernel',
+                                      'cluster_walk_kernel', 'tc_gemm_kernel',
+                                      'splitk_add_kernel')}
 
 
 def _profile_step(trainer, batch):
@@ -1065,6 +1161,15 @@ def kernels_line(rows, phase_launches):
                 and r['dtype'] == 'bfloat16']
         top = max(path, key=lambda r: r['bound_ms'])
         lib = [r['library_ms'] for r in path]
+        extra = {}
+        if name in DESIGNS:
+            extra['design'] = DESIGNS[name]
+        if name == 'blstm_fullfused_fwd':
+            extra['first_design_ms'] = sum(r['first_design_ms']
+                                           for r in path)
+        if name == 'blstm_fullfused_bwd':
+            extra['parts_ms'] = {part: sum(r['parts_ms'][part] for r in path)
+                                 for part in kb.FULLFUSED_BWD_PARTS}
         kernels.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name][0],
             'replaces': SOURCES[name][1],
@@ -1078,6 +1183,7 @@ def kernels_line(rows, phase_launches):
             'bound_by': top['bound_by'],
             'library_ms': None if None in lib else sum(lib),
             'library': top['library'],
+            **extra,
             'calls': calls,
         })
     return {'kernels': kernels}

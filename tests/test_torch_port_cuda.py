@@ -1,5 +1,13 @@
 """The port's ten CUDA kernels against their plain versions, on the card.
 
+The fully fused pair's bfloat16 route runs the clustered Hopper kernels
+(``csrc/blstm_cluster_*.cuh``); its tests below stress the cluster split,
+the row tiles and waves, the x staging and the walk, at the acceptance
+tolerances: forward 1.6e-2 abs (one bf16 ulp of c below 4, flipped by a sum
+order that differs from the plain version's), backward 5e-3 of each output's
+peak (dx is rounded to bf16 per direction; the gate gradients enter the
+tensor-core products as a two-term bf16 split, relative error ~2^-16).
+
 Needs an NVIDIA card with the CUDA toolkit; skips elsewhere. This file
 imports no JAX, so it also runs where JAX is missing, without the suite's
 conftest::
@@ -273,3 +281,88 @@ def test_lstm_strided_gate_inputs_read_in_place(gen):
     want = kb.lstm_bwd_plain(xg.contiguous(), w_hh_t, h, c, dh.contiguous(),
                              reverse=True)
     assert _rel_err(got, want) <= 1e-4
+
+
+# The bf16 route of the fully fused pair (csrc/blstm_cluster_fwd.cuh,
+# csrc/blstm_cluster_bwd.cuh), (B, T, F, H): H 16 on a cluster of 4, H 37
+# with CTAs that own no unit, H 300 as served and H 512 on a 16-CTA cluster;
+# F 12 to 2048 (x staged in blocks); 1 row, 13, 16 and 128 rows (the served
+# tiles of pre_net and birnn0) and 300 rows (more than one wave at H 512);
+# T 1, 2 and 316.
+CLUSTER_CASES = [(1, 1, 12, 16), (13, 2, 513, 37), (13, 316, 12, 300),
+                 (16, 316, 513, 300), (128, 316, 513, 300),
+                 (300, 9, 2048, 512), (300, 2, 320, 300)]
+CLUSTER_FWD_ATOL = 1.6e-2
+CLUSTER_BWD_RTOL = 5e-3
+
+
+@pytest.mark.parametrize('B,T,F,H', CLUSTER_CASES)
+def test_cluster_fwd_matches_plain(gen, B, T, F, H):
+    x = torch.randn(B, T, F, generator=gen, device='cuda').to(torch.bfloat16)
+    w_ih_t = _uniform(gen, (2, F, 4 * H), H ** -0.5, torch.bfloat16)
+    w_hh_t = _uniform(gen, (2, H, 4 * H), H ** -0.5, torch.bfloat16)
+    bias = _uniform(gen, (2, 4 * H), H ** -0.5, torch.float32)
+    before = kb.blstm_fullfused_fwd.launches
+    got = kb.blstm_fullfused_fwd(x, w_ih_t, w_hh_t, bias, with_cell=True)
+    assert kb.blstm_fullfused_fwd.launches == before + 1
+    want = kb.blstm_fullfused_fwd_plain(x, w_ih_t, w_hh_t, bias,
+                                        with_cell=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(),
+                                   atol=CLUSTER_FWD_ATOL, rtol=0)
+    h_only, c_none = kb.blstm_fullfused_fwd(x, w_ih_t, w_hh_t, bias)
+    assert c_none is None
+    torch.testing.assert_close(h_only, got[0], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize('B,T,F,H', CLUSTER_CASES)
+def test_cluster_bwd_matches_plain_and_repeats(gen, B, T, F, H):
+    """Against the plain version, and two launches give the same bits."""
+    args = _fullfused_bwd_inputs(gen, torch.bfloat16, B, T, F, H)
+    before = kb.blstm_fullfused_bwd.launches
+    got = kb.blstm_fullfused_bwd(*args)
+    again = kb.blstm_fullfused_bwd(*args)
+    assert kb.blstm_fullfused_bwd.launches == before + 2
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    want = kb.blstm_fullfused_bwd_plain(*args)
+    assert _rel_err(got, want) <= CLUSTER_BWD_RTOL
+
+
+def test_cluster_strided_inputs_read_in_place(gen):
+    """The bf16 route takes x and dh with any batch and time strides."""
+    B, T, F, H = 6, 11, 24, 16
+    x, w_ih_t, w_hh_t, bias, h, c, _ = _fullfused_bwd_inputs(
+        gen, torch.bfloat16, B, T, F, H)
+    wide_x = torch.zeros(B, T + 1, 2 * F, device='cuda', dtype=torch.bfloat16)
+    wide_x[:, 1:, :F] = x
+    xv = wide_x[:, 1:, :F]
+    got, _ = kb.blstm_fullfused_fwd(xv, w_ih_t, w_hh_t, bias)
+    want, _ = kb.blstm_fullfused_fwd(x, w_ih_t, w_hh_t, bias)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    wide_dh = torch.randn(B, T + 3, 3 * H, generator=gen,
+                          device='cuda').to(torch.bfloat16)
+    dh = wide_dh[:, 1:T + 1, :2 * H]
+    got = kb.blstm_fullfused_bwd(xv, w_ih_t, w_hh_t, bias, h, c, dh)
+    want = kb.blstm_fullfused_bwd(x, w_ih_t, w_hh_t, bias, h, c,
+                                  dh.contiguous())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize('kind', ['fwd', 'bwd'])
+def test_cluster_capacity_is_that_of_the_kernel_that_runs(gen, kind):
+    """The geometry asks cudaOccupancyMaxActiveClusters about the kernel
+    instance, threads and shared bytes it picks: at the flagship's shapes
+    each CTA takes a whole SM, every picked plan fits the card, and 128
+    rows run in one wave."""
+    device = torch.device('cuda', torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for rows, F in ((16, 513), (128, 513), (128, 320), (2048, 513)):
+        geo = kb._geometry(kind, rows, F, 300, device)
+        held = kb._cluster_slots(kind, device, geo.cluster, geo.row_tile,
+                                 geo.chunk, geo.threads, geo.shared)
+        assert held is not None and held * geo.cluster <= sms
+        assert geo.clusters_per_wave == min(held, geo.clusters)
+        if rows == 128:
+            assert geo.waves == 1

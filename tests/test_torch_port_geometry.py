@@ -1,0 +1,204 @@
+"""The launch geometry and weight packing of the fully fused pair's bf16
+route (``kernels/blstm.py`` ``cluster_geometry``, ``_pack_fwd``,
+``_pack_walk``): pure Python, no card, no JAX.
+
+The CUDA kernels (``csrc/blstm_cluster_*.cuh``) trust what these give them:
+that every hidden unit has exactly one owning CTA, that every row lies in a
+tile, that each CTA's shared memory fits, and that the packed fragments put
+each weight where mma.sync's register layout expects it.
+"""
+
+import itertools
+
+import pytest
+import torch
+
+from tssep_tpu_torch.kernels import blstm as kb
+
+ROWS = (1, 13, 16, 128, 300, 2048)
+WIDTHS = (12, 320, 513, 2048)
+
+
+#: The card's cluster capacity as an H100 SXM reports it for CTAs that take
+#: a whole SM each: 15 clusters of 8 at once, 7 of 16 (GPCs of unequal
+#: size), whatever the plan.
+def _h100_slots(cluster, row_tile, chunk, threads, shared):
+    return {1: 132, 2: 66, 4: 32, 8: 15, 16: 7}[cluster]
+
+
+def _check(geo, rows, F, H):
+    C, U = geo.cluster, geo.units
+    assert C <= 16 and C & (C - 1) == 0
+    assert U % 4 == 0 and 1 <= geo.active <= C
+    # every hidden unit owned exactly once, by the first `active` CTAs
+    owner = torch.zeros(H, dtype=torch.int64)
+    for r in range(C):
+        lo, hi = r * U, min(H, (r + 1) * U)
+        if r >= geo.active:
+            assert lo >= H
+        else:
+            assert lo < hi
+            owner[lo:hi] += 1
+    assert bool((owner == 1).all())
+    # every row in a tile, no tile empty
+    assert geo.tiles * geo.row_tile >= rows > (geo.tiles - 1) * geo.row_tile
+    assert geo.row_tile in (8, 16, 24, 32)
+    assert geo.clusters == 2 * geo.tiles
+    assert geo.clusters_per_wave * C <= kb.H100_SMS
+    assert geo.waves * geo.clusters_per_wave >= geo.clusters
+    assert geo.shared <= 232448 and geo.threads % 32 == 0
+    KH, KF, MT = kb._ceil_to(H, 16), kb._ceil_to(F, 16), U // 4
+    if geo.kind == 'fwd':
+        assert geo.threads == 2 * MT * 32 <= 640
+        assert geo.chunk in (1, 2, 4) and geo.chunk * geo.row_tile <= 32
+        assert geo.k_block % 16 == 0 and min(KF, 256) <= geo.k_block <= KF
+        assert geo.shared == kb._fwd_shared(MT, KH, geo.row_tile, geo.chunk,
+                                            geo.k_block)
+    else:
+        assert geo.threads <= 512
+        assert U * geo.row_tile <= 4 * geo.threads
+        assert geo.shared == kb._walk_shared(MT, KH, U, geo.active,
+                                             geo.row_tile)
+
+
+@pytest.mark.parametrize('kind', ['fwd', 'bwd'])
+@pytest.mark.parametrize('slots', [None, _h100_slots],
+                         ids=['sms-over-cluster', 'h100-capacity'])
+@pytest.mark.parametrize('H', [16, 37, 300, 512])
+def test_geometry_invariants(kind, slots, H):
+    """Over rows and widths, with the card's cluster capacity known or
+    not: units owned once, rows covered, shared bytes and threads within
+    Hopper's limits, clusters of a wave within 132 SMs."""
+    for rows, F in itertools.product(ROWS, WIDTHS):
+        geo = kb.cluster_geometry(kind, rows, F, H, slots=slots)
+        assert geo.kind == kind
+        _check(geo, rows, F, H)
+
+
+@pytest.mark.parametrize('kind,largest_of_8', [('fwd', 320), ('bwd', 416)])
+def test_cluster_size_follows_hidden_size(kind, largest_of_8):
+    """8 CTAs (portable) up to the largest H whose share fits one CTA: 10
+    m-tiles of four units in the forward, the walk's shared memory in the
+    backward; 16 (non-portable) above, as H 512 needs; fewer where H needs
+    fewer; no geometry above the kernels' largest H."""
+    def size(H):
+        return kb.cluster_geometry(kind, 128, 513, H).cluster
+
+    assert [size(H) for H in (4, 16, 37, 300, largest_of_8)] == [1, 4, 8, 8, 8]
+    assert [size(H) for H in (largest_of_8 + 1, 512)] == [16, 16]
+    with pytest.raises(ValueError):
+        kb.cluster_geometry(kind, 128, 513, kb._MAX_HIDDEN + 1)
+
+
+def test_geometry_at_flagship_shapes():
+    """pre_net (16 rows, F 513), birnn0 and birnn1 (128 rows, F 513 and 320)
+    of a served request or a training step at batch 16, and birnn0 at batch
+    256 (2048 rows): clusters of 8 CTAs of 40 units, one wave where the rows
+    allow."""
+    def g(kind, rows, F):
+        geo = kb.cluster_geometry(kind, rows, F, 300)
+        return (geo.cluster, geo.units, geo.active, geo.row_tile, geo.tiles,
+                geo.threads, geo.chunk, geo.k_block, geo.waves)
+
+    # as the card reports it: 15 clusters of 8 at once (GPCs of unequal size)
+    def on_h100(kind, rows, F):
+        return kb.cluster_geometry(kind, rows, F, 300, slots=_h100_slots)
+
+    assert on_h100('fwd', 128, 513).row_tile == 24
+    assert on_h100('bwd', 128, 513).tiles == 6
+    assert on_h100('fwd', 16, 513).row_tile == 8
+    assert g('fwd', 16, 513) == (8, 40, 8, 8, 2, 640, 4, 528, 1)
+    assert g('fwd', 128, 513) == (8, 40, 8, 16, 8, 640, 2, 528, 1)
+    assert g('fwd', 128, 320) == (8, 40, 8, 16, 8, 640, 2, 320, 1)
+    assert g('fwd', 2048, 513) == (8, 40, 8, 32, 64, 640, 1, 528, 8)
+    assert g('bwd', 16, 513) == (8, 40, 8, 8, 2, 512, 1, 0, 1)
+    assert g('bwd', 128, 513) == (8, 40, 8, 16, 8, 512, 1, 0, 1)
+    assert g('bwd', 2048, 513) == (8, 40, 8, 32, 64, 512, 1, 0, 8)
+    assert kb.cluster_geometry('fwd', 128, 513, 300).shared == 192528
+
+
+def _unfragment(frags):
+    """(..., M/16, K/16, 32, 8) -> (..., M, K), reading each lane's values
+    by mma.m16n8k16's A layout as PTX states it: value i of lane 4 g + t is
+    row g (i in 0, 1, 4, 5) or g + 8, column 2t + i % 2 (+ 8 for i >= 4)."""
+    *lead, MT, KT = frags.shape[:-2]
+    out = torch.zeros(*lead, MT * 16, KT * 16, dtype=frags.dtype)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for i in range(8):
+            row = g if (i < 2 or 4 <= i < 6) else g + 8
+            col = 2 * t + i % 2 + (8 if i >= 4 else 0)
+            out[..., row::16, col::16] = frags[..., lane, i]
+    return out
+
+
+def test_fragments_follow_the_mma_layout():
+    a = torch.randn(3, 32, 48)
+    frags = kb._fragments(a)
+    assert frags.shape == (3, 2, 3, 32, 8)
+    torch.testing.assert_close(_unfragment(frags), a, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize('H,F', [(16, 12), (37, 20), (300, 513)])
+def test_packed_weights_hold_each_gate_row_once(H, F):
+    """_pack_fwd and _pack_walk: CTA r's local row 16 mt + 4 g + j is gate g
+    of unit r U + 4 mt + j, zero where that unit is padding; every gate row
+    of both directions appears exactly once."""
+    gen = torch.Generator().manual_seed(0)
+    w_ih_t = torch.randn(2, F, 4 * H, generator=gen)
+    w_hh_t = torch.randn(2, H, 4 * H, generator=gen)
+    bias = torch.randn(2, 4 * H, generator=gen)
+    geo = kb.cluster_geometry('fwd', 16, F, H)
+    wih_p, whh_p, bias_p = kb._pack_fwd(w_ih_t, w_hh_t, bias, geo, H)
+    walk = kb._pack_walk(w_hh_t, kb.cluster_geometry('bwd', 16, F, H), H)
+    # the kernels read them through raw pointers
+    assert all(t.is_contiguous() for t in (wih_p, whh_p, bias_p, walk))
+    wih, whh = _unfragment(wih_p), _unfragment(whh_p)  # (2, C, 4U, K)
+    walk = _unfragment(walk)                          # (2, C, KH, 4U)
+    C, U = geo.cluster, geo.units
+    seen = torch.zeros(4 * H, dtype=torch.int64)
+    for r in range(C):
+        for m in range(4 * U):
+            g, unit = (m % 16) // 4, r * U + 4 * (m // 16) + m % 4
+            if unit < H:
+                row = g * H + unit
+                seen[row] += 1
+                torch.testing.assert_close(wih[:, r, m, :F], w_ih_t[:, :, row])
+                torch.testing.assert_close(whh[:, r, m, :H], w_hh_t[:, :, row])
+                torch.testing.assert_close(walk[:, r, :H, m],
+                                           w_hh_t[:, :, row])
+                torch.testing.assert_close(bias_p[:, r, m], bias[:, row])
+            else:
+                assert not wih[:, r, m].any() and not whh[:, r, m].any()
+                assert not walk[:, r, :, m].any() and not bias_p[:, r, m].any()
+    assert bool((seen == 1).all())
+    assert not wih[..., F:].any() and not whh[..., H:].any()
+    assert not walk[:, :, H:].any()
+
+
+def test_local_rows_give_each_lane_pair_the_four_gates():
+    """In an m16n8 accumulator lane 4 q + t holds rows q and q + 8: with the
+    local row order, lane q < 4 holds the i and g rows of unit q and lane
+    q + 4 (lane ^ 16) the f and o rows of the same unit."""
+    for q in range(4):
+        rows = {q: None, q + 8: None, q + 4: None, q + 12: None}
+        for m in rows:
+            rows[m] = ((m % 16) // 4, m % 4)     # (gate, unit in the tile)
+        assert rows[q] == (0, q) and rows[q + 8] == (2, q)
+        assert rows[q + 4] == (1, q) and rows[q + 12] == (3, q)
+
+
+def test_wgrad_splits_fit_the_dx_buffer():
+    """The weight sums' row ranges: their partials fit in dx's memory, each
+    range is at least 64 blocks of 32 rows, and at the flagship's shapes
+    the 140 tiles of birnn0 (F 513) fill 8 ranges' waves where one range
+    would leave most of a second wave idle."""
+    for rows in (1, 13, 5056, 40448, 647168):
+        for F, H in ((12, 16), (320, 300), (513, 300), (2048, 512)):
+            splits = kb.wgrad_splits(rows, F, H)
+            assert 1 <= splits <= 8
+            assert (splits - 1) * 2 * (F + H + 1) * 4 * H <= rows * F
+            assert splits == 1 or rows // splits >= 32 * 64
+    assert [kb.wgrad_splits(16 * 316, 513, 300),
+            kb.wgrad_splits(128 * 316, 513, 300),
+            kb.wgrad_splits(128 * 316, 320, 300)] == [2, 8, 5]

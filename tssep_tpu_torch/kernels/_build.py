@@ -36,11 +36,20 @@ _I = ctypes.c_int
 _SIGNATURES = {
     'tssep_blstm_fullfused_fwd': [_P, _LL, _LL, _I, _P, _P, _P, _P, _P, _LL,
                                   _LL, _I, _I, _I, _I, _I, _P],
+    'tssep_blstm_fullfused_fwd_cluster': [_P, _LL, _LL, _I, _P, _P, _P, _P,
+                                          _P, _LL, _LL, _I, _I, _I, _I, _I,
+                                          _I, _I, _I, _I, _P],
+    'tssep_cluster_fwd_slots': [_I, _I, _I, _I, _I, _P],
+    'tssep_cluster_walk_slots': [_I, _I, _I, _I, _P],
     'tssep_blstm_bidi_fwd': [_P, _LL, _LL, _P, _P, _P, _LL, _LL, _I, _I, _I,
                              _I, _I, _P],
     'tssep_blstm_fullfused_bwd': [_P, _LL, _LL, _I, _P, _P, _P, _P, _P, _P,
                                   _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _I,
                                   _I, _I, _I, _I, _P],
+    'tssep_blstm_fullfused_bwd_cluster': [_P, _LL, _LL, _I, _P, _P, _P, _P,
+                                          _P, _P, _LL, _LL, _P, _LL, _LL, _P,
+                                          _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                          _I, _I, _I, _P],
     'tssep_blstm_bidi_bwd': [_P, _LL, _LL, _P, _P, _P, _P, _LL, _LL, _P, _LL,
                              _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     'tssep_blstm_fullfused_cond_fwd': [_P, _LL, _LL, _I, _P, _I, _P, _P, _P,

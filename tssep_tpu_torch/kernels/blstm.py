@@ -34,6 +34,17 @@ inputs ``xg`` (B, T, 4H) and its backward, dxg and dW_hh; ``reverse=True``
 walks t = T-1 .. 0.
 The CUDA sources, with what bounds each kernel on an H100, are in ``csrc/``.
 
+The fully fused pair has two routes by storage dtype. bfloat16, the one the
+flagship serves and trains in, runs the Hopper design of
+``csrc/blstm_cluster_fwd.cuh`` and ``csrc/blstm_cluster_bwd.cuh``: W_hh
+split over a thread-block cluster and resident in shared memory,
+tensor-core products, the input projection off the serial chain. Its launch
+geometry comes from :func:`cluster_geometry`, and the weights enter it
+packed per CTA in the tensor cores' fragment order (:func:`_pack_fwd`,
+:func:`_pack_walk`). float32, the tests' and checks' mode, keeps the first
+design (``csrc/blstm_common.cuh``, ``csrc/blstm_bwd_common.cuh``), which
+the other eight kernels share.
+
 Each bidirectional wrapper takes one layer's two directions stacked on a
 leading axis of 2 (forward, reverse). Sequences are (B, T, 2H), the forward direction in
 ``[..., :H]`` and the reverse in ``[..., H:]``, both in original time order.
@@ -49,6 +60,10 @@ Each wrapper counts its launches in its ``launches`` attribute.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+
 import torch
 
 from tssep_tpu_torch.kernels import _build
@@ -61,7 +76,8 @@ __all__ = ['blstm_fullfused_fwd', 'blstm_bidi_fwd', 'blstm_fullfused_bwd',
            'blstm_fullfused_bwd_plain', 'blstm_bidi_bwd_plain',
            'blstm_fullfused_cond_fwd_plain', 'blstm_fullfused_cond_bwd_plain',
            'blstm_fullfused_spill_fwd_plain', 'blstm_fullfused_spill_bwd_plain',
-           'lstm_fwd_plain', 'lstm_bwd_plain', 'SPILL_BLOCK']
+           'lstm_fwd_plain', 'lstm_bwd_plain', 'SPILL_BLOCK',
+           'ClusterGeometry', 'cluster_geometry', 'wgrad_splits']
 
 _STORAGE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -353,6 +369,277 @@ def lstm_bwd_plain(xg, w_hh_t, h, c, dh, *, reverse=False):
 
 
 # ---------------------------------------------------------------------------
+# Launch geometry and weight packing of the fully fused pair's bf16 route
+# ---------------------------------------------------------------------------
+
+#: SMs of an H100 SXM: the card the geometry is sized for.
+H100_SMS = 132
+
+#: Most m-tiles (16 gate rows) one CTA of the forward owns: its block is a
+#: consumer and a producer warp per m-tile, at most 640 threads.
+_FWD_MAX_MTILES = 10
+
+#: Most threads of a walk CTA, and (unit, row) elements each thread updates.
+_WALK_MAX_THREADS, _WALK_EPT = 512, 4
+
+
+def _ceil_to(n, m):
+    return -(-n // m) * m
+
+
+def _fwd_shared(MT, KH, BT, TC, KX):
+    """Shared bytes of a forward CTA (``csrc/blstm_cluster_fwd.cuh``): the
+    W_hh^T slice, two h buffers, a two-chunk ring of f32 gate inputs, the
+    staged x rows and two mbarriers."""
+    return (MT * (KH // 16) * 512 + 4 * BT * (KH + 8)
+            + 2 * TC * MT * (BT // 8) * 512 + 2 * TC * BT * (KX + 8) + 16)
+
+
+def _walk_shared(MT, KH, U, nact, BT):
+    """Shared bytes of a walk CTA (``csrc/blstm_cluster_bwd.cuh``): the
+    W_hh^T slice, two buffers of the C partials of dh, two steps' split gate
+    gradients and two mbarriers."""
+    return (MT * (KH // 16) * 512 + 8 * nact * U * BT + 8 * BT * (4 * U + 8)
+            + 16)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterGeometry:
+    """How one launch of the fully fused pair's bf16 route is cut.
+
+    ``cluster`` CTAs a cluster, CTA r owning the hidden units
+    ``[r units, min(H, (r + 1) units))``, the first ``active`` of them owning
+    any; one cluster per (tile of ``row_tile`` rows, direction),
+    ``clusters`` in all, ``clusters_per_wave`` resident at once;
+    ``threads`` and ``shared`` bytes a CTA. Forward only: ``chunk`` steps of
+    gate inputs computed at a time, x staged ``k_block`` columns at a
+    time."""
+    kind: str
+    cluster: int
+    units: int
+    active: int
+    row_tile: int
+    tiles: int
+    threads: int
+    shared: int
+    chunk: int
+    k_block: int
+    clusters: int
+    clusters_per_wave: int
+
+    @property
+    def waves(self):
+        return -(-self.clusters // self.clusters_per_wave)
+
+
+def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
+    """The launch geometry of ``blstm_fullfused_fwd`` (``kind`` 'fwd') or of
+    ``blstm_fullfused_bwd``'s walk ('bwd') in bf16 storage, for ``rows``
+    rows, input width F and hidden size H: a pure function of its
+    arguments. ``slots(cluster, row_tile, chunk, threads, shared)`` gives
+    the clusters of the kernel that such a plan launches that the card holds
+    at once, or None (an H100 SXM holds 15 clusters of 8 CTAs that take a
+    whole SM each, not 132 // 8 = 16, as its SMs sit in GPCs of unequal
+    size); without it, or where it gives None, ``sms // cluster``.
+
+    The cluster is 8 CTAs (portable) where each CTA's share fits (the
+    forward's at most 10 m-tiles, H <= 320; the walk's in shared memory,
+    H <= 416), else 16 (non-portable); fewer CTAs where H needs fewer (a
+    power of two). Units per CTA are a multiple of 4, so that
+    each m-tile holds the four gates of four units. The row tile is the
+    smallest of 8, 16, 24, 32 that puts every cluster in one wave, else the
+    largest that fits; the forward then takes the longest chunk of steps
+    (1, 2, 4, at most 32 columns) and the widest x block (at least 256
+    columns, or all of F) that fit in 232,448 bytes. Raises ValueError
+    where H exceeds ``_MAX_HIDDEN`` or nothing fits."""
+    if kind not in ('fwd', 'bwd'):
+        raise ValueError(f'kind must be fwd or bwd, got {kind!r}')
+    if rows < 1 or F < 1 or H < 1:
+        raise ValueError(f'empty layer: rows {rows}, F {F}, H {H}')
+    if H > _MAX_HIDDEN:
+        raise ValueError(f'hidden size {H} > {_MAX_HIDDEN}')
+    KH, KF = _ceil_to(H, 16), _ceil_to(F, 16)
+    for C in (8, 16):
+        U = 4 * -(-H // (4 * C))
+        MT = U // 4
+        if kind == 'fwd' and MT > _FWD_MAX_MTILES:
+            continue
+        nact = -(-H // U)
+        cluster = 1 << (nact - 1).bit_length()
+        plans = []
+        for BT in (8, 16, 24, 32):
+            if kind == 'fwd':
+                plan = _fwd_plan(MT, KH, KF, BT)
+            else:
+                plan = _walk_plan(MT, KH, U, nact, BT)
+            if plan is not None:
+                threads, shared, TC, _ = plan
+                per_wave = ((slots and slots(cluster, BT, TC, threads, shared))
+                            or sms // cluster)
+                plans.append((BT, plan, per_wave))
+        if not plans:
+            continue
+        one_wave = [p for p in plans if 2 * -(-rows // p[0]) <= p[2]]
+        BT, (threads, shared, TC, KX), per_wave = (
+            one_wave[0] if one_wave else plans[-1])
+        tiles = -(-rows // BT)
+        return ClusterGeometry(
+            kind=kind, cluster=cluster, units=U, active=nact, row_tile=BT,
+            tiles=tiles, threads=threads, shared=shared, chunk=TC,
+            k_block=KX, clusters=2 * tiles,
+            clusters_per_wave=min(per_wave, 2 * tiles))
+    raise ValueError(f'no cluster of at most 16 CTAs holds a {kind} layer '
+                     f'with H {H}, F {F} in shared memory')
+
+
+def _fwd_plan(MT, KH, KF, BT):
+    """(threads, shared, chunk, x block) of the forward at row tile BT, or
+    None where nothing fits with x staged at least 256 columns at a time."""
+    for TC in (4, 2, 1):
+        if TC * BT > 32:
+            continue
+        for nk in range(1, KF // 16 + 1):
+            KX = _ceil_to(-(-KF // nk), 16)
+            if KX < min(KF, 256):
+                break
+            shared = _fwd_shared(MT, KH, BT, TC, KX)
+            if shared <= _MAX_SHARED_BYTES:
+                return 2 * MT * 32, shared, TC, KX
+    return None
+
+
+def _walk_plan(MT, KH, U, nact, BT):
+    """(threads, shared, 1, 0) of the walk at row tile BT, or None."""
+    warps = max(min(16, KH // 16), -(-U * BT // (32 * _WALK_EPT)))
+    shared = _walk_shared(MT, KH, U, nact, BT)
+    if 32 * warps > _WALK_MAX_THREADS or shared > _MAX_SHARED_BYTES:
+        return None
+    return 32 * warps, shared, 1, 0
+
+
+def wgrad_splits(rows, F, H, sms=H100_SMS):
+    """Row ranges the bf16 backward's weight sums cut its ``rows`` (B T)
+    rows into, so that 2 x the output's 128 x 128 tiles times the ranges
+    leave the least of their last wave of ``sms`` SMs idle: at most 8, at
+    least 64 blocks of 32 rows each, and no more partials (each
+    2 (F + H + 1) 4H floats) than dx's B T F floats hold. A pure function."""
+    tiles = 2 * -(-(F + H + 1) // 128) * -(-(4 * H) // 128)
+    room = 1 + rows * F // (2 * (F + H + 1) * 4 * H)
+    best = 1
+    for splits in range(2, min(8, room, rows // (32 * 64)) + 1):
+        if (-(-tiles * splits // sms) * best
+                < -(-tiles * best // sms) * splits):
+            best = splits
+    return best
+
+
+def _fragment_offsets():
+    """(row, column) inside a 16 x 16 tile of each of the 8 bf16 values that
+    lane l = 4 q + t holds in mma.m16n8k16's A registers: rows q, q + 8,
+    columns 2t, 2t + 1, 2t + 8, 2t + 9 (``csrc/blstm_cluster.cuh``)."""
+    lane = torch.arange(32)[:, None]
+    e = torch.arange(8)[None, :]
+    row = lane // 4 + 8 * ((e // 2) % 2)
+    col = 2 * (lane % 4) + e % 2 + 8 * (e // 4)
+    return row, col
+
+
+def _fragments(a):
+    """a (..., M, K), M and K multiples of 16 -> (..., M/16, K/16, 32, 8):
+    each 16 x 16 tile as the 8 values each lane loads in one 16 bytes."""
+    *lead, M, K = a.shape
+    tiles = a.reshape(*lead, M // 16, 16, K // 16, 16).transpose(-3, -2)
+    row, col = _fragment_offsets()
+    return tiles[..., row, col]
+
+
+@functools.lru_cache(maxsize=32)
+def _gate_rows(H, cluster, U, device):
+    """(cluster, 4U) int64: the global gate row g H + u of each CTA's local
+    gate row m = 16 mt + 4 g + r (unit u = CTA U + 4 mt + r), or 4H where
+    the unit is padding."""
+    m = torch.arange(4 * U)
+    gate, unit = (m % 16) // 4, 4 * (m // 16) + m % 4
+    unit = torch.arange(cluster)[:, None] * U + unit
+    return torch.where(unit < H, gate * H + unit,
+                       torch.full_like(unit, 4 * H)).to(device)
+
+
+@functools.lru_cache(maxsize=32)
+def _pack_index(kind, k, H, cluster, U, device):
+    """Where each value of a packed weight comes from: for w_t (2, k, 4H)
+    flattened per direction with one zero appended (at k 4H, read for
+    padded units and for rows beyond k), and the two directions then laid
+    end to end, the flat index (int32) of each value of :func:`_pack_fwd`'s
+    (kind 'fwd') or :func:`_pack_walk`'s ('walk') fragments, (2, C, U/4,
+    K/16, 32, 8) or (2, C, K/16, U/4, 32, 8)."""
+    n, K = k * 4 * H, _ceil_to(k, 16)
+    src = torch.nn.functional.pad(torch.arange(n).reshape(k, 4 * H),
+                                  (0, 1, 0, K - k), value=n)
+    rows = _gate_rows(H, cluster, U, torch.device('cpu'))
+    tiles = src[:, rows].permute(1, 2, 0)                 # (C, 4U, K)
+    if kind == 'walk':
+        tiles = tiles.transpose(-1, -2)
+    idx = _fragments(tiles)
+    idx = torch.stack([idx, idx + n + 1])
+    return idx.to(device=device, dtype=torch.int32)
+
+
+def _pack(w_t, kind, geo, H):
+    """w_t (2, k, 4H) in fragment order by :func:`_pack_index`, contiguous:
+    one pad and one gather."""
+    idx = _pack_index(kind, w_t.shape[1], H, geo.cluster, geo.units,
+                      w_t.device)
+    return torch.nn.functional.pad(w_t.reshape(2, -1), (0, 1)).view(-1)[idx]
+
+
+def _pack_fwd(w_ih_t, w_hh_t, bias, geo, H):
+    """The forward's operands: W_ih^T and W_hh^T CTA slices as fragments
+    (2, C, U/4, K/16, 32, 8) and the bias (2, C, 4U), in local gate-row
+    order."""
+    rows = _gate_rows(H, geo.cluster, geo.units, w_hh_t.device)
+    bpad = torch.nn.functional.pad(bias, (0, 1))
+    return (_pack(w_ih_t, 'fwd', geo, H), _pack(w_hh_t, 'fwd', geo, H),
+            bpad[:, rows])
+
+
+def _pack_walk(w_hh_t, geo, H):
+    """The walk's operand: per CTA, W_hh^T (KH, 4U) restricted to its gate
+    rows, as fragments (2, C, KH/16, U/4, 32, 8)."""
+    return _pack(w_hh_t, 'walk', geo, H)
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _cluster_slots(kind, device, cluster, row_tile, chunk, threads, shared):
+    """Clusters of ``cluster`` CTAs of the kernel that a forward (``kind``
+    'fwd') or walk ('bwd') plan launches that ``device`` holds at once, from
+    cudaOccupancyMaxActiveClusters on that kernel; None where the query
+    fails."""
+    n = ctypes.c_int(0)
+    lib = _build.library()
+    with torch.cuda.device(device):
+        if kind == 'fwd':
+            err = lib.tssep_cluster_fwd_slots(cluster, row_tile, chunk,
+                                              threads, shared, ctypes.byref(n))
+        else:
+            err = lib.tssep_cluster_walk_slots(cluster, row_tile, threads,
+                                               shared, ctypes.byref(n))
+    return n.value if err == 0 and n.value > 0 else None
+
+
+@functools.lru_cache(maxsize=64)
+def _geometry(kind, rows, F, H, device):
+    """:func:`cluster_geometry` for a launch on ``device``."""
+    return cluster_geometry(
+        kind, rows, F, H, _sms(device),
+        slots=functools.partial(_cluster_slots, kind, device))
+
+
+# ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
 
@@ -376,9 +663,8 @@ def _check_stream_input(name, x):
                          f'{_STORAGE_DTYPES}, got {x.dtype}')
 
 
-def _launch_tile(x, H, shared_floats_per_row, tensors, rows=None):
-    """Rows per block for a launch on ``x`` with ``rows`` rows (default
-    ``x.shape[0]``); raises where no kernel runs."""
+def _check_launch(x, H, tensors):
+    """Raises where no kernel runs on ``x`` with hidden size H."""
     if x.device.type != 'cuda':
         raise ValueError(f'no kernel for device {x.device}')
     if x.numel() == 0:
@@ -389,6 +675,13 @@ def _launch_tile(x, H, shared_floats_per_row, tensors, rows=None):
         raise ValueError('weights, bias and saved states must be contiguous')
     if H > _MAX_HIDDEN:
         raise ValueError(f'hidden size {H} > {_MAX_HIDDEN}')
+
+
+def _launch_tile(x, H, shared_floats_per_row, tensors, rows=None):
+    """Rows per block of the first design's kernels for a launch on ``x``
+    with ``rows`` rows (default ``x.shape[0]``); raises where no kernel
+    runs."""
+    _check_launch(x, H, tensors)
     bt = _batch_tile(x.shape[0] if rows is None else rows, x.device)
     if 4 * bt * shared_floats_per_row > _MAX_SHARED_BYTES:
         bt = 4
@@ -425,6 +718,11 @@ def blstm_fullfused_fwd(x, w_ih_t, w_hh_t, bias, *, with_cell=False):
     dtype; bias: (2, 4H) float32, the sum of both torch biases. Returns
     ``(h, c)``, each (B, T, 2H) in the storage dtype; ``c`` is None unless
     ``with_cell``.
+
+    On a CUDA device, bfloat16 storage runs the clustered Hopper kernel
+    (``csrc/blstm_cluster_fwd.cuh``, geometry from :func:`cluster_geometry`);
+    float32 storage, the tests' and checks' mode, runs the first design
+    (``csrc/blstm_common.cuh``).
     """
     _check_stream_input('x', x)
     B, T, F = x.shape
@@ -435,6 +733,10 @@ def blstm_fullfused_fwd(x, w_ih_t, w_hh_t, bias, *, with_cell=False):
     if x.device.type == 'cpu':
         return blstm_fullfused_fwd_plain(x, w_ih_t, w_hh_t, bias,
                                          with_cell=with_cell)
+    if x.dtype == torch.bfloat16:
+        out = _fullfused_fwd_cluster(x, w_ih_t, w_hh_t, bias, with_cell)
+        blstm_fullfused_fwd.launches += 1
+        return out
     bt = _launch_tile(x, H, 2 * H + F, (w_ih_t, w_hh_t, bias))
     h, c = _outputs(x, H, with_cell)
     with torch.cuda.device(x.device):
@@ -446,6 +748,26 @@ def blstm_fullfused_fwd(x, w_ih_t, w_hh_t, bias, *, with_cell=False):
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, 'blstm_fullfused_fwd')
     blstm_fullfused_fwd.launches += 1
+    return h, c
+
+
+def _fullfused_fwd_cluster(x, w_ih_t, w_hh_t, bias, with_cell):
+    """The bf16 route of :func:`blstm_fullfused_fwd` on a CUDA device."""
+    B, T, F = x.shape
+    H = w_hh_t.shape[1]
+    _check_launch(x, H, (w_ih_t, w_hh_t, bias))
+    geo = _geometry('fwd', B, F, H, x.device)
+    wih_p, whh_p, bias_p = _pack_fwd(w_ih_t, w_hh_t, bias, geo, H)
+    h, c = _outputs(x, H, with_cell)
+    with torch.cuda.device(x.device):
+        err = _build.library().tssep_blstm_fullfused_fwd_cluster(
+            x.data_ptr(), x.stride(0), x.stride(1), F, wih_p.data_ptr(),
+            whh_p.data_ptr(), bias_p.data_ptr(), h.data_ptr(),
+            c.data_ptr() if with_cell else None, h.stride(0), h.stride(1),
+            B, T, H, geo.cluster, geo.units, geo.active, geo.row_tile,
+            geo.chunk, geo.k_block,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, 'blstm_fullfused_fwd')
     return h, c
 
 
@@ -552,6 +874,12 @@ def blstm_fullfused_bwd(x, w_ih_t, w_hh_t, bias, h, c, dh):
     each direction's share rounded to the storage dtype before the two are
     summed; dw_ih_t (2, F, 4H); dw_hh_t (2, H, 4H); db (2, 4H), the
     gradient of each of the two torch biases.
+
+    On a CUDA device, bfloat16 storage runs the Hopper design
+    (``csrc/blstm_cluster_bwd.cuh``: the gate pre-activations as one
+    tensor-core product, a clustered walk, tensor-core weight sums and dx);
+    float32 storage, the tests' and checks' mode, runs the first design
+    (``csrc/blstm_bwd_common.cuh``).
     """
     _check_stream_input('x', x)
     B, T, F = x.shape
@@ -562,6 +890,10 @@ def blstm_fullfused_bwd(x, w_ih_t, w_hh_t, bias, h, c, dh):
     _check_saved(x, H, h, c, dh, x.dtype)
     if x.device.type == 'cpu':
         return blstm_fullfused_bwd_plain(x, w_ih_t, w_hh_t, bias, h, c, dh)
+    if x.dtype == torch.bfloat16:
+        out = _fullfused_bwd_cluster(x, w_ih_t, w_hh_t, bias, h, c, dh)
+        blstm_fullfused_bwd.launches += 1
+        return out
     bt = _launch_tile(x, H, 7 * H + F, (w_ih_t, w_hh_t, bias, h, c))
     w_ih = w_ih_t.transpose(1, 2).contiguous()
     w_hh = w_hh_t.transpose(1, 2).contiguous()
@@ -580,6 +912,42 @@ def blstm_fullfused_bwd(x, w_ih_t, w_hh_t, bias, h, c, dh):
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, 'blstm_fullfused_bwd')
     blstm_fullfused_bwd.launches += 1
+    return dx, dw[:, :F], dw[:, F:F + H], dw[:, F + H]
+
+
+#: The launches of the bf16 backward, in order, by their ``parts`` bit.
+FULLFUSED_BWD_PARTS = {'gates': 1, 'walk': 2, 'wgrad': 4, 'dx': 8}
+
+
+def _fullfused_bwd_cluster(x, w_ih_t, w_hh_t, bias, h, c, dh, parts=15,
+                           out=None):
+    """The bf16 route of :func:`blstm_fullfused_bwd` on a CUDA device;
+    ``parts`` picks its launches (:data:`FULLFUSED_BWD_PARTS`) and ``out``
+    gives the workspace and outputs ``(dg, dw, dx)`` to reuse, so that each
+    launch can be timed alone."""
+    B, T, F = x.shape
+    H = w_hh_t.shape[1]
+    _check_launch(x, H, (w_ih_t, w_hh_t, bias, h, c))
+    geo = _geometry('bwd', B, F, H, x.device)
+    wp = _pack_walk(w_hh_t, geo, H)
+    if out is None:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        out = (torch.empty(2, B, T, 4 * H, **f32),       # workspace
+               # [dW_ih^T; dW_hh^T; db]
+               torch.empty(2, F + H + 1, 4 * H, **f32),
+               torch.empty(B, T, F, **f32))
+    dg, dw, dx = out
+    with torch.cuda.device(x.device):
+        err = _build.library().tssep_blstm_fullfused_bwd_cluster(
+            x.data_ptr(), x.stride(0), x.stride(1), F, w_ih_t.data_ptr(),
+            w_hh_t.data_ptr(), bias.data_ptr(), wp.data_ptr(), h.data_ptr(),
+            c.data_ptr(), h.stride(0), h.stride(1), dh.data_ptr(),
+            dh.stride(0), dh.stride(1), dg.data_ptr(), dw.data_ptr(),
+            dx.data_ptr(), B, T, H, geo.cluster, geo.units, geo.active,
+            geo.row_tile, geo.threads,
+            wgrad_splits(B * T, F, H, _sms(x.device)),
+            parts, torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, 'blstm_fullfused_bwd')
     return dx, dw[:, :F], dw[:, F:F + H], dw[:, F + H]
 
 
