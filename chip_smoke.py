@@ -9,17 +9,22 @@ Phases, each of which must pass:
 1. device: the card's name and power limit from ``nvidia-smi``;
 2. build: the CUDA kernels, one ``nvcc`` per source started together, with
    ``-Xptxas -v``'s registers, shared memory and spills, summed up for the
-   clustered kernels of the fully fused pair's bfloat16 route;
+   clustered kernels of the bfloat16 route;
 3. kernels: each kernel against its plain PyTorch version on the card, in
    float32 and in bfloat16 storage, with max error, kernel time, plain time
    and bound: the forward kernels at a ragged small shape, at the shapes of
    a served request (batch 16) and at the flagship training shapes (batch
    256); the backward kernels at a ragged shape and at the training shapes
-   of batch 16 and of batch 256. The fully fused pair runs, in bfloat16, the
-   clustered Hopper kernels (``csrc/blstm_cluster_*.cuh``): the forward is
-   timed beside the first design's kernel doing the same work (the spill
-   forward without boundaries), the backward by its four launches (gate
-   product, walk, weight sums, dx), each between CUDA events;
+   of batch 16 and of batch 256. The fully fused pair and the bidi pair run,
+   in bfloat16, the clustered Hopper kernels (``csrc/blstm_cluster_*.cuh``,
+   the bidi pair in their gate-input form): each forward is timed beside the
+   first design's kernels doing the same work (the spill forward without
+   boundaries; ``lstm_fwd`` for each direction), the backward by its
+   launches (gate product, walk, weight sums and, fully fused, dx), each
+   between CUDA events, the bidi backward beside ``lstm_bwd`` for each
+   direction too. The gate-input kernels (the bidi and the unidirectional
+   pair) are timed beside one cuDNN LSTM call that computes their function
+   from xg: input weights that select xg's columns, zero biases;
 4. serving: the flagship TS-SEP model (``bench.py:98-106``, random weights
    from a seed) answers 3 requests of batch 16 through the kernels, which the
    launch counters prove, and its masks and waveforms agree with the same
@@ -116,16 +121,18 @@ BWD_RTOL = {F32: 1e-4, BF16: 1e-2}
 #: bf16 ulp of c (2^-6 between 2 and 4) flipped by another f32 sum order;
 #: dx rounded to bf16 per direction, the gate gradients entering the tensor
 #: cores as a two-term bf16 split (relative error ~2^-16).
-CLUSTER_TOL = {'blstm_fullfused_fwd': 1.6e-2, 'blstm_fullfused_bwd': 5e-3}
+CLUSTER_TOL = {'blstm_fullfused_fwd': 1.6e-2, 'blstm_fullfused_bwd': 5e-3,
+               'blstm_bidi_fwd': 1.6e-2, 'blstm_bidi_bwd': 5e-3}
 #: The sources of the kernels each wrapper launches, by storage type.
-DESIGNS = {
-    'blstm_fullfused_fwd': {
-        'bfloat16': 'tssep_tpu_torch/kernels/csrc/blstm_cluster_fwd.cuh',
-        'float32': 'tssep_tpu_torch/kernels/csrc/blstm_common.cuh'},
-    'blstm_fullfused_bwd': {
-        'bfloat16': 'tssep_tpu_torch/kernels/csrc/blstm_cluster_bwd.cuh',
-        'float32': 'tssep_tpu_torch/kernels/csrc/blstm_bwd_common.cuh'},
-}
+_CLUSTERED = {
+    'fwd': {'bfloat16': 'tssep_tpu_torch/kernels/csrc/blstm_cluster_fwd.cuh',
+            'float32': 'tssep_tpu_torch/kernels/csrc/blstm_common.cuh'},
+    'bwd': {'bfloat16': 'tssep_tpu_torch/kernels/csrc/blstm_cluster_bwd.cuh',
+            'float32': 'tssep_tpu_torch/kernels/csrc/blstm_bwd_common.cuh'}}
+DESIGNS = {'blstm_fullfused_fwd': _CLUSTERED['fwd'],
+           'blstm_fullfused_bwd': _CLUSTERED['bwd'],
+           'blstm_bidi_fwd': _CLUSTERED['fwd'],
+           'blstm_bidi_bwd': _CLUSTERED['bwd']}
 #: One training step, kernels against plain versions: the loss (abs) and
 #: each parameter's gradient (max abs error over max abs value). float32:
 #: f32 sums in another order through the forward, the ISTFT and the
@@ -272,8 +279,8 @@ def phase_device():
     check(torch.cuda.device_count() >= 1, 'a CUDA device')
 
 
-#: Kernel names of the fully fused pair's bfloat16 route, as ptxas and the
-#: profiler show them.
+#: Kernel names of the clustered bfloat16 route, as ptxas and the profiler
+#: show them.
 CLUSTER_KERNELS = ('cluster_fwd_kernel', 'cluster_walk_kernel', 'GatesOp',
                    'WgradOp', 'DxOp', 'splitk_add_kernel')
 
@@ -297,7 +304,8 @@ def phase_build():
     for line in result.log.splitlines():
         if line.strip():
             log(f'  {line.strip()}')
-    log('ptxas, clustered kernels of the fully fused pair (bf16 route):')
+    log('ptxas, clustered kernels (bf16 route of the fully fused and bidi '
+        'pairs):')
     for name, entry, tail in _ptxas_summary(result.log):
         log(f'  {name}: {entry}: {" | ".join(tail)}')
     _build.library()
@@ -405,13 +413,80 @@ def lstm_case(label, B, T, H, reverse, dtype, gen):
     w_hh_t = _uniform(gen, (H, 4 * H), 1 / H ** 0.5, dtype)
     got = kb.lstm_fwd(xg, w_hh_t, reverse=reverse, with_cell=True)
     want = kb.lstm_fwd_plain(xg, w_hh_t, reverse=reverse, with_cell=True)
+    name = (f'lstm_fwd {label} B={B} T={T} H={H} '
+            f'{"reverse" if reverse else "forward"}')
+    library = _selection_lstm(name, xg, w_hh_t[None], want[0], dtype,
+                              reverse=reverse)
     return _case(
-        f'lstm_fwd {label} B={B} T={T} H={H} '
-        f'{"reverse" if reverse else "forward"}', dtype,
-        lambda: kb.lstm_fwd(xg, w_hh_t, reverse=reverse),
+        name, dtype, lambda: kb.lstm_fwd(xg, w_hh_t, reverse=reverse),
         lambda: kb.lstm_fwd_plain(xg, w_hh_t, reverse=reverse),
         got, want, flops=2 * B * T * H * 4 * H,
-        nbytes=size * (B * T * 4 * H + H * 4 * H + B * T * H))
+        nbytes=size * (B * T * 4 * H + H * 4 * H + B * T * H),
+        library=library.forward, library_label=SELECTION_LIBRARY)
+
+
+#: The yardstick of the gate-input kernels: one cuDNN LSTM call whose input
+#: weights select xg's columns (x W_ih^T = xg exactly, in any storage type)
+#: and whose biases are zero, so that it computes the kernel's function.
+SELECTION_LIBRARY = 'cuDNN LSTM on xg, selection input weights'
+#: Its h against the plain version's, max abs error: cuDNN keeps its own
+#: order of sums and, in bfloat16, its own roundings inside the step.
+SELECTION_ATOL = {F32: 1e-4, BF16: 5e-2}
+
+
+class _Selection:
+    """cuDNN's LSTM set up to compute a gate-input kernel's function: the
+    call (``forward``) and its backward from a kept graph (``backward``,
+    made on first use), on the inputs the kernel takes."""
+
+    def __init__(self, lstm, xg_in, h_out):
+        self.lstm, self.xg_in, self.h_out = lstm, xg_in, h_out
+
+    def forward(self):
+        return self.lstm(self.xg_in)
+
+    def backward(self, dh):
+        xg_leaf = self.xg_in.detach().requires_grad_()
+        out, _ = self.lstm(xg_leaf)
+        weights = [p for n, p in self.lstm.named_parameters()
+                   if n.startswith('weight_hh')]
+        return lambda: torch.autograd.grad(out, [xg_leaf, *weights],
+                                           self.h_out(dh), retain_graph=True)
+
+
+def _selection_lstm(name, xg, w_hh_t, h_ref, dtype, reverse=False,
+                    ref='the plain version'):
+    """cuDNN's ``torch.nn.LSTM`` with input width G = 4H n (n directions),
+    ``weight_ih`` of direction d the selection [0 .. I_4H .. 0] of xg's
+    columns [4H d, 4H (d + 1)), zero biases and ``weight_hh`` = w_hh_t[d]^T:
+    h = the gate-input kernel's h on xg. One direction with ``reverse``
+    runs on the time-flipped xg (flipped once, outside the timed call).
+    Checks its h against ``h_ref``, the plain version's (or, where ``ref``
+    says so, the kernel's); returns the :class:`_Selection`."""
+    n, H = w_hh_t.shape[0], w_hh_t.shape[1]
+    G = 4 * H * n
+    lstm = torch.nn.LSTM(G, H, bidirectional=n == 2, batch_first=True,
+                         device='cuda', dtype=dtype)
+    eye = torch.eye(4 * H, device='cuda', dtype=dtype)
+    with torch.no_grad():
+        for d, suffix in enumerate(['', '_reverse'][:n]):
+            w_ih = getattr(lstm, f'weight_ih_l0{suffix}')
+            w_ih.zero_()
+            w_ih[:, 4 * H * d:4 * H * (d + 1)] = eye
+            getattr(lstm, f'weight_hh_l0{suffix}').copy_(w_hh_t[d].T)
+            getattr(lstm, f'bias_ih_l0{suffix}').zero_()
+            getattr(lstm, f'bias_hh_l0{suffix}').zero_()
+    lstm.flatten_parameters()
+    xg_in = xg.flip(1).contiguous() if reverse else xg.contiguous()
+    flip = (lambda t: t.flip(1)) if reverse else (lambda t: t)
+    with torch.no_grad():
+        h = flip(lstm(xg_in)[0])
+    err = (h.float() - h_ref.float()).abs().max().item()
+    log(f'{name}: {SELECTION_LIBRARY}: h max abs err against {ref} '
+        f'{err:.3g} (tolerance {SELECTION_ATOL[dtype]})')
+    check(err <= SELECTION_ATOL[dtype], f'{name}: the selection LSTM computes '
+          f'the kernel\'s function ({err:.3g})')
+    return _Selection(lstm, xg_in, flip)
 
 
 def _cond_inputs(B, S, T, F, H, dtype, gen):
@@ -454,12 +529,26 @@ def bidi_case(label, B, T, H, dtype, gen):
     w_hh_t = _uniform(gen, (2, H, 4 * H), 1 / H ** 0.5, dtype)
     got = kb.blstm_bidi_fwd(xg, w_hh_t, with_cell=True)
     want = kb.blstm_bidi_fwd_plain(xg, w_hh_t, with_cell=True)
-    return _case(
-        f'blstm_bidi_fwd {label} B={B} T={T} H={H}', dtype,
-        lambda: kb.blstm_bidi_fwd(xg, w_hh_t),
+    name = f'blstm_bidi_fwd {label} B={B} T={T} H={H}'
+    library = _selection_lstm(name, xg, w_hh_t, want[0], dtype)
+    row = _case(
+        name, dtype, lambda: kb.blstm_bidi_fwd(xg, w_hh_t),
         lambda: kb.blstm_bidi_fwd_plain(xg, w_hh_t),
         got, want, flops=2 * B * T * 2 * H * 4 * H,
-        nbytes=size * (B * T * 8 * H + 2 * H * 4 * H + B * T * 2 * H))
+        nbytes=size * (B * T * 8 * H + 2 * H * 4 * H + B * T * 2 * H),
+        library=library.forward, library_label=SELECTION_LIBRARY,
+        tol=CLUSTER_TOL['blstm_bidi_fwd'] if dtype == BF16 else None)
+    row['design'] = DESIGNS['blstm_bidi_fwd'][row['dtype']]
+    if dtype == BF16:
+        # the first design's kernels on the same work: lstm_fwd for each
+        # direction, from the same xg
+        G = 4 * H
+        row['first_design_ms'] = cuda_ms(lambda: (
+            kb.lstm_fwd(xg[..., :G], w_hh_t[0]),
+            kb.lstm_fwd(xg[..., G:], w_hh_t[1], reverse=True)))
+        row['geometry'] = dataclasses.asdict(
+            kb._geometry('fwd_xg', B, 8 * H, H, xg.device, 'bidi'))
+    return row
 
 
 def cuda_ms_once(fn):
@@ -611,29 +700,33 @@ def fullfused_bwd_case(label, B, T, F, H, dtype, gen):
     return row
 
 
+def _parts_ms(run, parts):
+    """A bf16 backward's launches, each timed alone between CUDA events on
+    the same workspace: ``run(bits)`` runs the launches that the bits of
+    ``parts`` pick. The walk runs on the gate product's output, which it
+    overwrites, so it is timed with that product and the product's time
+    taken off; the sums (and dx) run on the walk's output. 'wgrad' holds the
+    weight sums' product and, where it cuts the rows into ranges,
+    ``splitk_add_kernel``'s sum of their partials."""
+    ms = {}
+    for name, bit in parts.items():
+        if name == 'walk':
+            ms[name] = cuda_ms(lambda: run(parts['gates'] | bit)) - ms['gates']
+        else:
+            ms[name] = cuda_ms(lambda: run(bit))
+    return ms
+
+
 def _bwd_parts_ms(args):
-    """The bf16 backward's four parts, each timed alone between CUDA
-    events on the same workspace (the walk on the gate product's output,
-    the sums and dx on the walk's); 'wgrad' holds the weight sums' product
-    and, where it cuts the rows into ranges, ``splitk_add_kernel``'s sum of
-    their partials."""
+    """The bf16 fully fused backward's four parts (:func:`_parts_ms`)."""
     x, w_ih_t, w_hh_t, bias, h, c, dh = args
     B, T, F = x.shape
     H = w_hh_t.shape[1]
     out = (torch.empty(2, B, T, 4 * H, device='cuda'),
            torch.empty(2, F + H + 1, 4 * H, device='cuda'),
            torch.empty(B, T, F, device='cuda'))
-    parts = {}
-    for name, bit in kb.FULLFUSED_BWD_PARTS.items():
-        if name == 'walk':   # the walk overwrites the pre-activations
-            gates = kb.FULLFUSED_BWD_PARTS['gates']
-            total = cuda_ms(lambda: kb._fullfused_bwd_cluster(
-                *args, parts=gates | bit, out=out))
-            parts[name] = total - parts['gates']
-        else:
-            parts[name] = cuda_ms(lambda: kb._fullfused_bwd_cluster(
-                *args, parts=bit, out=out))
-    return parts
+    return _parts_ms(lambda bits: kb._fullfused_bwd_cluster(
+        *args, parts=bits, out=out), kb.FULLFUSED_BWD_PARTS)
 
 
 def spill_bwd_case(label, B, T, F, H, dtype, gen):
@@ -668,6 +761,10 @@ def lstm_bwd_case(label, B, T, H, reverse, dtype, gen):
     xg = torch.randn(B, T, 4 * H, generator=gen, device='cuda').to(dtype)
     w_hh_t = _uniform(gen, (H, 4 * H), 1 / H ** 0.5, dtype)
     h, c = kb.lstm_fwd(xg, w_hh_t, reverse=reverse, with_cell=True)
+    name = (f'lstm_bwd {label} B={B} T={T} H={H} '
+            f'{"reverse" if reverse else "forward"}')
+    library = _selection_lstm(name, xg, w_hh_t[None], h, dtype,
+                              reverse=reverse, ref="the kernel's h")
     dh = 0.1 * torch.randn(B, T, H, generator=gen, device='cuda')
     args = (xg, w_hh_t, h, c, dh)
     rows = B * T
@@ -679,11 +776,11 @@ def lstm_bwd_case(label, B, T, H, reverse, dtype, gen):
     nbytes = (size * (2 * rows * 4 * H + 2 * rows * H + H * 4 * H)
               + 4 * (rows * H + H * 4 * H))
     return _bwd_case(
-        f'lstm_bwd {label} B={B} T={T} H={H} '
-        f'{"reverse" if reverse else "forward"}', dtype,
-        lambda: kb.lstm_bwd(*args, reverse=reverse),
+        name, dtype, lambda: kb.lstm_bwd(*args, reverse=reverse),
         lambda: kb.lstm_bwd_plain(*args, reverse=reverse),
-        ('dxg', 'dw_hh'), bwd_bound(rec, grad, nbytes, dtype))
+        ('dxg', 'dw_hh'), bwd_bound(rec, grad, nbytes, dtype),
+        library=lambda: library.backward(dh.to(dtype)),
+        library_label=SELECTION_LIBRARY + ', backward')
 
 
 def cond_bwd_case(label, B, S, T, F, H, dtype, gen):
@@ -740,18 +837,53 @@ def bidi_bwd_case(label, B, T, H, dtype, gen):
     dh = 0.1 * torch.randn(B, T, 2 * H, generator=gen, device='cuda')
     args = (xg, w_hh_t, h, c, dh)
     rows = B * T
+    name = f'blstm_bidi_bwd {label} B={B} T={T} H={H}'
+    library = _selection_lstm(name, xg, w_hh_t, h, dtype,
+                              ref="the kernel's h")
     # operations: gate recompute 2 rows 2 dirs H 4H on storage operands;
-    # dh (4H H) and dW_hh (H 4H) on f32 ones. bytes: xg, h, c, w_hh, dh
-    # (f32) read once, dxg and dW_hh (f32) written once.
+    # dh (4H H) and dW_hh (H 4H) on f32 ones, in bf16 storage each as two
+    # bf16 products (the split). bytes: xg, h, c, w_hh, dh (f32) read once,
+    # dxg and dW_hh (f32) written once.
     rec = 2 * rows * 2 * H * 4 * H
     grad = 2 * rows * 2 * 2 * 4 * H * H
     nbytes = (size * (2 * rows * 8 * H + 2 * rows * 2 * H + 2 * H * 4 * H)
               + 4 * (rows * 2 * H + 2 * H * 4 * H))
-    return _bwd_case(
-        f'blstm_bidi_bwd {label} B={B} T={T} H={H}', dtype,
-        lambda: kb.blstm_bidi_bwd(*args),
+    row = _bwd_case(
+        name, dtype, lambda: kb.blstm_bidi_bwd(*args),
         lambda: kb.blstm_bidi_bwd_plain(*args),
-        ('dxg', 'dw_hh'), bwd_bound(rec, grad, nbytes, dtype))
+        ('dxg', 'dw_hh'),
+        bwd_bound(rec, grad, nbytes, dtype, split=dtype == BF16),
+        library=lambda: library.backward(dh.to(dtype)),
+        library_label=SELECTION_LIBRARY + ', backward',
+        tol=CLUSTER_TOL['blstm_bidi_bwd'] if dtype == BF16 else None)
+    row['design'] = DESIGNS['blstm_bidi_bwd'][row['dtype']]
+    if dtype == BF16:
+        row['parts_ms'] = _bidi_bwd_parts_ms(args)
+        row['first_design_ms'] = _bidi_bwd_first_design_ms(args)
+        row['geometry'] = dataclasses.asdict(
+            kb._geometry('bwd', B, 8 * H, H, xg.device, 'bidi'))
+    return row
+
+
+def _bidi_bwd_parts_ms(args):
+    """The bf16 bidi backward's three parts (:func:`_parts_ms`)."""
+    out = kb._bidi_bwd_buffers(args[0], args[1].shape[1])
+    return _parts_ms(lambda bits: kb._bidi_bwd_cluster(
+        *args, parts=bits, out=out), kb.BIDI_BWD_PARTS)
+
+
+def _bidi_bwd_first_design_ms(args):
+    """The first design's kernels on the same work: ``lstm_bwd`` for each
+    direction (each direction's h and c made contiguous outside the timed
+    calls, as that kernel reads them)."""
+    xg, w_hh_t, h, c, dh = args
+    G, H = xg.shape[-1] // 2, w_hh_t.shape[1]
+    dirs = [(xg[..., d * G:(d + 1) * G], w_hh_t[d],
+             h[..., d * H:(d + 1) * H].contiguous(),
+             c[..., d * H:(d + 1) * H].contiguous(),
+             dh[..., d * H:(d + 1) * H]) for d in range(2)]
+    return cuda_ms(lambda: [kb.lstm_bwd(*a, reverse=d == 1)
+                            for d, a in enumerate(dirs)])
 
 
 def phase_kernels():
@@ -1164,12 +1296,12 @@ def kernels_line(rows, phase_launches):
         extra = {}
         if name in DESIGNS:
             extra['design'] = DESIGNS[name]
-        if name == 'blstm_fullfused_fwd':
+        if all('first_design_ms' in r for r in path):
             extra['first_design_ms'] = sum(r['first_design_ms']
                                            for r in path)
-        if name == 'blstm_fullfused_bwd':
+        if all('parts_ms' in r for r in path):
             extra['parts_ms'] = {part: sum(r['parts_ms'][part] for r in path)
-                                 for part in kb.FULLFUSED_BWD_PARTS}
+                                 for part in path[0]['parts_ms']}
         kernels.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name][0],
             'replaces': SOURCES[name][1],

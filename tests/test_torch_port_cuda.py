@@ -1,12 +1,14 @@
 """The port's ten CUDA kernels against their plain versions, on the card.
 
-The fully fused pair's bfloat16 route runs the clustered Hopper kernels
-(``csrc/blstm_cluster_*.cuh``); its tests below stress the cluster split,
-the row tiles and waves, the x staging and the walk, at the acceptance
-tolerances: forward 1.6e-2 abs (one bf16 ulp of c below 4, flipped by a sum
-order that differs from the plain version's), backward 5e-3 of each output's
-peak (dx is rounded to bf16 per direction; the gate gradients enter the
-tensor-core products as a two-term bf16 split, relative error ~2^-16).
+The fully fused pair's and the bidi pair's bfloat16 routes run the
+clustered Hopper kernels (``csrc/blstm_cluster_*.cuh``, the bidi pair in
+their gate-input form); their tests below stress the cluster split, the row
+tiles and waves, the x staging, the copy of xg and the walk, at the
+acceptance tolerances: forward 1.6e-2 abs (one bf16 ulp of c below 4,
+flipped by a sum order that differs from the plain version's), backward
+5e-3 of each output's peak (dx is rounded to bf16 per direction; the gate
+gradients enter the tensor-core products as a two-term bf16 split,
+relative error ~2^-16).
 
 Needs an NVIDIA card with the CUDA toolkit; skips elsewhere. This file
 imports no JAX, so it also runs where JAX is missing, without the suite's
@@ -365,4 +367,95 @@ def test_cluster_capacity_is_that_of_the_kernel_that_runs(gen, kind):
         assert held is not None and held * geo.cluster <= sms
         assert geo.clusters_per_wave == min(held, geo.clusters)
         if rows == 128:
+            assert geo.waves == 1
+
+
+# The bidi pair's bf16 route (the gate-input form of csrc/blstm_cluster_*.cuh),
+# (B, T, H): H 16 on a cluster of 4, H 37 with CTAs that own no unit and
+# gate columns only 2-byte aligned, H 300 as served and trained (16 rows)
+# and as fullfuse=False runs it (128 rows), 256 rows at H 300 and 300 rows at
+# H 416 and 512 (more than one wave; 16-CTA clusters); T 1, 2, 9 and 316.
+GATE_CASES = [(1, 1, 16), (13, 2, 37), (13, 316, 300), (16, 316, 300),
+              (128, 316, 300), (256, 9, 300), (300, 2, 416), (300, 9, 512)]
+
+
+def _bidi_inputs(gen, B, T, H):
+    xg = torch.randn(B, T, 8 * H, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    w_hh_t = _uniform(gen, (2, H, 4 * H), H ** -0.5, torch.bfloat16)
+    return xg, w_hh_t
+
+
+@pytest.mark.parametrize('B,T,H', GATE_CASES)
+def test_cluster_bidi_fwd_matches_plain(gen, B, T, H):
+    xg, w_hh_t = _bidi_inputs(gen, B, T, H)
+    before = kb.blstm_bidi_fwd.launches
+    got = kb.blstm_bidi_fwd(xg, w_hh_t, with_cell=True)
+    assert kb.blstm_bidi_fwd.launches == before + 1
+    want = kb.blstm_bidi_fwd_plain(xg, w_hh_t, with_cell=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(),
+                                   atol=CLUSTER_FWD_ATOL, rtol=0)
+    h_only, c_none = kb.blstm_bidi_fwd(xg, w_hh_t)
+    assert c_none is None
+    torch.testing.assert_close(h_only, got[0], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize('B,T,H', GATE_CASES)
+def test_cluster_bidi_bwd_matches_plain_and_repeats(gen, B, T, H):
+    """dxg and dW_hh against the plain version, dh in float32; two launches
+    give the same bits."""
+    xg, w_hh_t = _bidi_inputs(gen, B, T, H)
+    h, c = kb.blstm_bidi_fwd(xg, w_hh_t, with_cell=True)
+    dh = torch.randn(B, T, 2 * H, generator=gen, device='cuda')
+    before = kb.blstm_bidi_bwd.launches
+    got = kb.blstm_bidi_bwd(xg, w_hh_t, h, c, dh)
+    again = kb.blstm_bidi_bwd(xg, w_hh_t, h, c, dh)
+    assert kb.blstm_bidi_bwd.launches == before + 2
+    assert got[0].shape == (B, T, 8 * H) and got[0].dtype == torch.bfloat16
+    assert got[1].shape == (2, H, 4 * H) and got[1].dtype == torch.float32
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    want = kb.blstm_bidi_bwd_plain(xg, w_hh_t, h, c, dh)
+    assert _rel_err(got, want) <= CLUSTER_BWD_RTOL
+
+
+def test_cluster_bidi_strided_inputs_read_in_place(gen):
+    """The bidi pair's bf16 route reads xg and dh with any batch and time
+    strides (slices of wider tensors), giving the bits of contiguous
+    inputs."""
+    B, T, H = 6, 11, 37
+    xg, w_hh_t = _bidi_inputs(gen, B, T, H)
+    wide = torch.zeros(B, T + 1, 9 * H, device='cuda', dtype=torch.bfloat16)
+    wide[:, 1:, H:] = xg
+    xv = wide[:, 1:, H:]
+    got = kb.blstm_bidi_fwd(xv, w_hh_t, with_cell=True)
+    want = kb.blstm_bidi_fwd(xg, w_hh_t, with_cell=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    h, c = want
+    wide_dh = torch.randn(B, T + 3, 3 * H, generator=gen, device='cuda')
+    dh = wide_dh[:, 1:T + 1, H:]
+    got = kb.blstm_bidi_bwd(xv, w_hh_t, h, c, dh)
+    want = kb.blstm_bidi_bwd(xg, w_hh_t, h, c, dh.contiguous())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize('kind', ['fwd_xg', 'bwd'])
+def test_cluster_bidi_capacity_is_that_of_the_kernel_that_runs(gen, kind):
+    """The bidi pair's geometry asks cudaOccupancyMaxActiveClusters about
+    the gate-input forward, or the walk that takes dh in float32, at the
+    row tile, chunk, threads and shared bytes it picks: at birnn2's 16 rows
+    and fullfuse=False's 128 every picked plan fits the card in one wave."""
+    device = torch.device('cuda', torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for rows in (16, 128, 256):
+        geo = kb._geometry(kind, rows, 8 * 300, 300, device, 'bidi')
+        held = kb._cluster_slots(kind, device, geo.cluster, geo.row_tile,
+                                 geo.chunk, geo.threads, geo.shared,
+                                 route='bidi')
+        assert held is not None and held * geo.cluster <= sms
+        assert geo.clusters_per_wave == min(held, geo.clusters)
+        if rows <= 128:
             assert geo.waves == 1

@@ -1,11 +1,13 @@
-"""The launch geometry and weight packing of the fully fused pair's bf16
-route (``kernels/blstm.py`` ``cluster_geometry``, ``_pack_fwd``,
-``_pack_walk``): pure Python, no card, no JAX.
+"""The launch geometry and weight packing of the clustered kernels, the bf16
+route of the fully fused pair and of the bidi pair (``kernels/blstm.py``
+``cluster_geometry``, ``_pack_fwd``, ``_pack_walk``, ``_xg_columns``): pure
+Python, no card, no JAX.
 
 The CUDA kernels (``csrc/blstm_cluster_*.cuh``) trust what these give them:
 that every hidden unit has exactly one owning CTA, that every row lies in a
-tile, that each CTA's shared memory fits, and that the packed fragments put
-each weight where mma.sync's register layout expects it.
+tile, that each CTA's shared memory fits, that the packed fragments put
+each weight where mma.sync's register layout expects it, and that the
+gate-input forward copies each column of xg into the gate row that reads it.
 """
 
 import itertools
@@ -54,6 +56,12 @@ def _check(geo, rows, F, H):
         assert geo.k_block % 16 == 0 and min(KF, 256) <= geo.k_block <= KF
         assert geo.shared == kb._fwd_shared(MT, KH, geo.row_tile, geo.chunk,
                                             geo.k_block)
+    elif geo.kind == 'fwd_xg':
+        assert geo.threads == 2 * MT * 32 <= 640
+        assert geo.chunk in (1, 2, 4, 8) and geo.chunk * geo.row_tile <= 64
+        assert geo.k_block == 0
+        assert geo.shared == kb._fwd_xg_shared(MT, KH, geo.row_tile,
+                                               geo.chunk)
     else:
         assert geo.threads <= 512
         assert U * geo.row_tile <= 4 * geo.threads
@@ -61,7 +69,7 @@ def _check(geo, rows, F, H):
                                              geo.row_tile)
 
 
-@pytest.mark.parametrize('kind', ['fwd', 'bwd'])
+@pytest.mark.parametrize('kind', ['fwd', 'bwd', 'fwd_xg'])
 @pytest.mark.parametrize('slots', [None, _h100_slots],
                          ids=['sms-over-cluster', 'h100-capacity'])
 @pytest.mark.parametrize('H', [16, 37, 300, 512])
@@ -75,7 +83,8 @@ def test_geometry_invariants(kind, slots, H):
         _check(geo, rows, F, H)
 
 
-@pytest.mark.parametrize('kind,largest_of_8', [('fwd', 320), ('bwd', 416)])
+@pytest.mark.parametrize('kind,largest_of_8', [('fwd', 320), ('bwd', 416),
+                                               ('fwd_xg', 320)])
 def test_cluster_size_follows_hidden_size(kind, largest_of_8):
     """8 CTAs (portable) up to the largest H whose share fits one CTA: 10
     m-tiles of four units in the forward, the walk's shared memory in the
@@ -202,3 +211,91 @@ def test_wgrad_splits_fit_the_dx_buffer():
     assert [kb.wgrad_splits(16 * 316, 513, 300),
             kb.wgrad_splits(128 * 316, 513, 300),
             kb.wgrad_splits(128 * 316, 320, 300)] == [2, 8, 5]
+
+
+def test_gate_input_geometry_at_birnn2():
+    """The bidi pair's bf16 route at the flagship's birnn2 (H 300, xg 8H
+    wide): 16 rows (a served request or a training step at batch 16) take
+    8-row tiles, 4 clusters of 8 in one wave, 8 steps a chunk; 128 rows
+    (``fullfuse=False``'s folded layers) 24-row tiles, 12 clusters in one
+    wave; 256 rows (batch 256) 32-row tiles, 16 clusters, one more than the
+    15 an H100 holds at once. The walk takes the fully fused walk's plan."""
+    def g(kind, rows):
+        geo = kb.cluster_geometry(kind, rows, 8 * 300, 300,
+                                  slots=_h100_slots)
+        return (geo.cluster, geo.units, geo.active, geo.row_tile, geo.tiles,
+                geo.threads, geo.chunk, geo.clusters, geo.waves)
+
+    assert g('fwd_xg', 16) == (8, 40, 8, 8, 2, 640, 8, 4, 1)
+    assert g('fwd_xg', 128) == (8, 40, 8, 24, 6, 640, 2, 12, 1)
+    assert g('fwd_xg', 256) == (8, 40, 8, 32, 8, 640, 2, 16, 2)
+    assert g('bwd', 16) == (8, 40, 8, 8, 2, 512, 1, 4, 1)
+    assert g('bwd', 128) == (8, 40, 8, 24, 6, 512, 1, 12, 1)
+    assert g('bwd', 256) == (8, 40, 8, 32, 8, 512, 1, 16, 2)
+    for rows in (16, 128, 256):
+        walk = kb.cluster_geometry('bwd', rows, 8 * 300, 300)
+        assert walk == kb.cluster_geometry('bwd', rows, 513, 300)
+
+
+@pytest.mark.parametrize('H', [16, 37, 128, 300, 320, 416, 512])
+def test_gate_input_forward_shared_memory_fits(H):
+    """The gate-input forward's shared bytes (the W_hh^T slice, two h
+    buffers of BT rows, a two-chunk ring of f32 gate inputs in the
+    accumulator layout, two mbarriers) at every row tile and chunk it may
+    pick, within Hopper's 232,448 bytes a block: what the header's
+    ``fwd_shared_bytes`` gives without the x staging."""
+    for rows in (1, 16, 128, 256, 2048):
+        geo = kb.cluster_geometry('fwd_xg', rows, 8 * H, H)
+        MT, KH, BT, TC = (geo.units // 4, kb._ceil_to(H, 16), geo.row_tile,
+                          geo.chunk)
+        parts = (MT * (KH // 16) * 32 * 16,           # W_hh^T fragments
+                 2 * 2 * BT * (KH + 8),               # h, double-buffered
+                 2 * TC * MT * (BT // 8) * 32 * 16,   # ring: float4 a lane
+                 2 * 8)                               # two mbarriers
+        assert geo.shared == sum(parts) <= 232448
+        assert kb._fwd_shared(MT, KH, BT, TC, 512) == (
+            geo.shared + 2 * TC * BT * (512 + 8))
+
+
+@pytest.mark.parametrize('H,C', [(16, 4), (37, 8), (300, 8), (512, 16)])
+def test_xg_columns_hold_each_gate_column_once(H, C):
+    """The gate-input forward's column map: local gate row m of CTA r in
+    direction d reads column d 4H + g H + u of xg, gate g of unit u in
+    ``_gate_rows``' local order (m = 16 mt + 4 g + j, u = r U + 4 mt + j),
+    -1 where u is padding; every one of the 8H columns is read exactly
+    once."""
+    geo = kb.cluster_geometry('fwd_xg', 16, 8 * H, H)
+    assert geo.cluster == C
+    U = geo.units
+    cols = kb._xg_columns(H, C, U, torch.device('cpu'))
+    assert cols.dtype == torch.int32 and cols.shape == (2, C, 4 * U)
+    assert cols.is_contiguous()
+    rows = kb._gate_rows(H, C, U, torch.device('cpu'))
+    seen = torch.zeros(8 * H, dtype=torch.int64)
+    for d in range(2):
+        for r in range(C):
+            for m in range(4 * U):
+                g, unit = (m % 16) // 4, r * U + 4 * (m // 16) + m % 4
+                col = int(cols[d, r, m])
+                if unit < H:
+                    assert col == d * 4 * H + g * H + unit
+                    assert col == d * 4 * H + int(rows[r, m])
+                    seen[col] += 1
+                else:
+                    assert col == -1
+    assert bool((seen == 1).all())
+
+
+def test_gate_wgrad_splits():
+    """The bidi backward's weight sums dW_hh^T (60 tiles of 128 x 128 at H
+    300, both directions) take 2 row ranges at the flagship's 16, 128 and
+    256 rows of 316 steps, which fill one wave of 132 SMs; at most 8, each
+    at least 64 blocks of 32 rows."""
+    for rows in (1, 13, 5056, 40448, 80896, 647168):
+        for H in (16, 300, 512):
+            splits = kb.gate_wgrad_splits(rows, H)
+            assert 1 <= splits <= 8
+            assert splits == 1 or rows // splits >= 32 * 64
+    assert [kb.gate_wgrad_splits(b * 316, 300) for b in (16, 128, 256)] == [
+        2, 2, 2]
+    assert kb.gate_wgrad_splits(1000, 300) == 1

@@ -43,6 +43,10 @@ _SIGNATURES = {
     'tssep_cluster_walk_slots': [_I, _I, _I, _I, _P],
     'tssep_blstm_bidi_fwd': [_P, _LL, _LL, _P, _P, _P, _LL, _LL, _I, _I, _I,
                              _I, _I, _P],
+    'tssep_blstm_bidi_fwd_cluster': [_P, _LL, _LL, _P, _P, _P, _P, _LL, _LL,
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    'tssep_bidi_fwd_slots': [_I, _I, _I, _I, _I, _P],
+    'tssep_bidi_walk_slots': [_I, _I, _I, _I, _P],
     'tssep_blstm_fullfused_bwd': [_P, _LL, _LL, _I, _P, _P, _P, _P, _P, _P,
                                   _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _I,
                                   _I, _I, _I, _I, _P],
@@ -52,6 +56,9 @@ _SIGNATURES = {
                                           _I, _I, _I, _P],
     'tssep_blstm_bidi_bwd': [_P, _LL, _LL, _P, _P, _P, _P, _LL, _LL, _P, _LL,
                              _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    'tssep_blstm_bidi_bwd_cluster': [_P, _LL, _LL, _P, _P, _P, _P, _LL, _LL,
+                                     _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _I, _I, _I, _I, _I, _P],
     'tssep_blstm_fullfused_cond_fwd': [_P, _LL, _LL, _I, _P, _I, _P, _P, _P,
                                        _P, _P, _LL, _LL, _I, _I, _I, _I, _I,
                                        _P],

@@ -34,16 +34,17 @@ inputs ``xg`` (B, T, 4H) and its backward, dxg and dW_hh; ``reverse=True``
 walks t = T-1 .. 0.
 The CUDA sources, with what bounds each kernel on an H100, are in ``csrc/``.
 
-The fully fused pair has two routes by storage dtype. bfloat16, the one the
-flagship serves and trains in, runs the Hopper design of
-``csrc/blstm_cluster_fwd.cuh`` and ``csrc/blstm_cluster_bwd.cuh``: W_hh
+The fully fused pair and the bidi pair have two routes by storage dtype.
+bfloat16, the one the flagship serves and trains in, runs the Hopper design
+of ``csrc/blstm_cluster_fwd.cuh`` and ``csrc/blstm_cluster_bwd.cuh``: W_hh
 split over a thread-block cluster and resident in shared memory,
-tensor-core products, the input projection off the serial chain. Its launch
+tensor-core products, the input projection (or the copy of the gate inputs
+xg) off the serial chain; the bidi pair runs its gate-input form. Its launch
 geometry comes from :func:`cluster_geometry`, and the weights enter it
 packed per CTA in the tensor cores' fragment order (:func:`_pack_fwd`,
 :func:`_pack_walk`). float32, the tests' and checks' mode, keeps the first
 design (``csrc/blstm_common.cuh``, ``csrc/blstm_bwd_common.cuh``), which
-the other eight kernels share.
+the other six kernels share.
 
 Each bidirectional wrapper takes one layer's two directions stacked on a
 leading axis of 2 (forward, reverse). Sequences are (B, T, 2H), the forward direction in
@@ -77,7 +78,8 @@ __all__ = ['blstm_fullfused_fwd', 'blstm_bidi_fwd', 'blstm_fullfused_bwd',
            'blstm_fullfused_cond_fwd_plain', 'blstm_fullfused_cond_bwd_plain',
            'blstm_fullfused_spill_fwd_plain', 'blstm_fullfused_spill_bwd_plain',
            'lstm_fwd_plain', 'lstm_bwd_plain', 'SPILL_BLOCK',
-           'ClusterGeometry', 'cluster_geometry', 'wgrad_splits']
+           'ClusterGeometry', 'cluster_geometry', 'wgrad_splits',
+           'gate_wgrad_splits']
 
 _STORAGE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -387,12 +389,18 @@ def _ceil_to(n, m):
     return -(-n // m) * m
 
 
-def _fwd_shared(MT, KH, BT, TC, KX):
-    """Shared bytes of a forward CTA (``csrc/blstm_cluster_fwd.cuh``): the
-    W_hh^T slice, two h buffers, a two-chunk ring of f32 gate inputs, the
-    staged x rows and two mbarriers."""
+def _fwd_xg_shared(MT, KH, BT, TC):
+    """Shared bytes of a forward CTA in the gate-input form
+    (``csrc/blstm_cluster_fwd.cuh``): the W_hh^T slice, two h buffers, a
+    two-chunk ring of f32 gate inputs and two mbarriers."""
     return (MT * (KH // 16) * 512 + 4 * BT * (KH + 8)
-            + 2 * TC * MT * (BT // 8) * 512 + 2 * TC * BT * (KX + 8) + 16)
+            + 2 * TC * MT * (BT // 8) * 512 + 16)
+
+
+def _fwd_shared(MT, KH, BT, TC, KX):
+    """Shared bytes of a forward CTA in the projection form: the gate-input
+    form's and the staged x rows."""
+    return _fwd_xg_shared(MT, KH, BT, TC) + 2 * TC * BT * (KX + 8)
 
 
 def _walk_shared(MT, KH, U, nact, BT):
@@ -405,15 +413,15 @@ def _walk_shared(MT, KH, U, nact, BT):
 
 @dataclasses.dataclass(frozen=True)
 class ClusterGeometry:
-    """How one launch of the fully fused pair's bf16 route is cut.
+    """How one launch of the clustered kernels (bf16 route) is cut.
 
     ``cluster`` CTAs a cluster, CTA r owning the hidden units
     ``[r units, min(H, (r + 1) units))``, the first ``active`` of them owning
     any; one cluster per (tile of ``row_tile`` rows, direction),
     ``clusters`` in all, ``clusters_per_wave`` resident at once;
     ``threads`` and ``shared`` bytes a CTA. Forward only: ``chunk`` steps of
-    gate inputs computed at a time, x staged ``k_block`` columns at a
-    time."""
+    gate inputs computed (or copied) at a time; projection form only: x
+    staged ``k_block`` columns at a time."""
     kind: str
     cluster: int
     units: int
@@ -432,15 +440,22 @@ class ClusterGeometry:
         return -(-self.clusters // self.clusters_per_wave)
 
 
+#: The kinds of :func:`cluster_geometry`: the forward in its projection and
+#: gate-input forms, and the backward's walk (the same in both forms).
+GEOMETRY_KINDS = ('fwd', 'fwd_xg', 'bwd')
+
+
 def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
-    """The launch geometry of ``blstm_fullfused_fwd`` (``kind`` 'fwd') or of
-    ``blstm_fullfused_bwd``'s walk ('bwd') in bf16 storage, for ``rows``
-    rows, input width F and hidden size H: a pure function of its
-    arguments. ``slots(cluster, row_tile, chunk, threads, shared)`` gives
-    the clusters of the kernel that such a plan launches that the card holds
-    at once, or None (an H100 SXM holds 15 clusters of 8 CTAs that take a
-    whole SM each, not 132 // 8 = 16, as its SMs sit in GPCs of unequal
-    size); without it, or where it gives None, ``sms // cluster``.
+    """The launch geometry of ``blstm_fullfused_fwd`` (``kind`` 'fwd'), of
+    ``blstm_bidi_fwd`` ('fwd_xg', the gate-input form) or of the walk of
+    ``blstm_fullfused_bwd`` and ``blstm_bidi_bwd`` ('bwd') in bf16 storage,
+    for ``rows`` rows, input width F (read by 'fwd' only) and hidden size H:
+    a pure function of its arguments. ``slots(cluster, row_tile, chunk,
+    threads, shared)`` gives the clusters of the kernel that such a plan
+    launches that the card holds at once, or None (an H100 SXM holds 15
+    clusters of 8 CTAs that take a whole SM each, not 132 // 8 = 16, as its
+    SMs sit in GPCs of unequal size); without it, or where it gives None,
+    ``sms // cluster``.
 
     The cluster is 8 CTAs (portable) where each CTA's share fits (the
     forward's at most 10 m-tiles, H <= 320; the walk's in shared memory,
@@ -448,12 +463,13 @@ def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
     power of two). Units per CTA are a multiple of 4, so that
     each m-tile holds the four gates of four units. The row tile is the
     smallest of 8, 16, 24, 32 that puts every cluster in one wave, else the
-    largest that fits; the forward then takes the longest chunk of steps
-    (1, 2, 4, at most 32 columns) and the widest x block (at least 256
-    columns, or all of F) that fit in 232,448 bytes. Raises ValueError
-    where H exceeds ``_MAX_HIDDEN`` or nothing fits."""
-    if kind not in ('fwd', 'bwd'):
-        raise ValueError(f'kind must be fwd or bwd, got {kind!r}')
+    largest that fits. The forward then takes the longest chunk of steps
+    that fits in 232,448 bytes: the projection form 1, 2 or 4 steps of at
+    most 32 columns and the widest x block (at least 256 columns, or all of
+    F), the gate-input form 1, 2, 4 or 8 steps of at most 64 columns.
+    Raises ValueError where H exceeds ``_MAX_HIDDEN`` or nothing fits."""
+    if kind not in GEOMETRY_KINDS:
+        raise ValueError(f'kind must be one of {GEOMETRY_KINDS}, got {kind!r}')
     if rows < 1 or F < 1 or H < 1:
         raise ValueError(f'empty layer: rows {rows}, F {F}, H {H}')
     if H > _MAX_HIDDEN:
@@ -462,7 +478,7 @@ def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
     for C in (8, 16):
         U = 4 * -(-H // (4 * C))
         MT = U // 4
-        if kind == 'fwd' and MT > _FWD_MAX_MTILES:
+        if kind != 'bwd' and MT > _FWD_MAX_MTILES:
             continue
         nact = -(-H // U)
         cluster = 1 << (nact - 1).bit_length()
@@ -470,6 +486,8 @@ def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
         for BT in (8, 16, 24, 32):
             if kind == 'fwd':
                 plan = _fwd_plan(MT, KH, KF, BT)
+            elif kind == 'fwd_xg':
+                plan = _fwd_xg_plan(MT, KH, BT)
             else:
                 plan = _walk_plan(MT, KH, U, nact, BT)
             if plan is not None:
@@ -508,6 +526,16 @@ def _fwd_plan(MT, KH, KF, BT):
     return None
 
 
+def _fwd_xg_plan(MT, KH, BT):
+    """(threads, shared, chunk, 0) of the gate-input forward at row tile BT,
+    or None."""
+    for TC in (8, 4, 2, 1):
+        shared = _fwd_xg_shared(MT, KH, BT, TC)
+        if TC * BT <= 64 and shared <= _MAX_SHARED_BYTES:
+            return 2 * MT * 32, shared, TC, 0
+    return None
+
+
 def _walk_plan(MT, KH, U, nact, BT):
     """(threads, shared, 1, 0) of the walk at row tile BT, or None."""
     warps = max(min(16, KH // 16), -(-U * BT // (32 * _WALK_EPT)))
@@ -518,13 +546,26 @@ def _walk_plan(MT, KH, U, nact, BT):
 
 
 def wgrad_splits(rows, F, H, sms=H100_SMS):
-    """Row ranges the bf16 backward's weight sums cut its ``rows`` (B T)
-    rows into, so that 2 x the output's 128 x 128 tiles times the ranges
-    leave the least of their last wave of ``sms`` SMs idle: at most 8, at
-    least 64 blocks of 32 rows each, and no more partials (each
-    2 (F + H + 1) 4H floats) than dx's B T F floats hold. A pure function."""
-    tiles = 2 * -(-(F + H + 1) // 128) * -(-(4 * H) // 128)
+    """Row ranges the bf16 fully fused backward's weight sums cut its
+    ``rows`` (B T) rows into, so that 2 x the output's 128 x 128 tiles
+    times the ranges leave the least of their last wave of ``sms`` SMs
+    idle: at most 8, at least 64 blocks of 32 rows each, and no more
+    partials (each 2 (F + H + 1) 4H floats) than dx's B T F floats hold. A
+    pure function."""
     room = 1 + rows * F // (2 * (F + H + 1) * 4 * H)
+    return _splits(F + H + 1, rows, H, room, sms)
+
+
+def gate_wgrad_splits(rows, H, sms=H100_SMS):
+    """Row ranges of the bf16 bidi backward's weight sums dW_hh^T, (H, 4H)
+    per direction, as :func:`wgrad_splits` cuts them; the partials go to a
+    workspace of their own. A pure function."""
+    return _splits(H, rows, H, 8, sms)
+
+
+def _splits(M, rows, H, room, sms):
+    """The ranges for 2 outputs (M, 4H) summed over ``rows`` rows."""
+    tiles = 2 * -(-M // 128) * -(-(4 * H) // 128)
     best = 1
     for splits in range(2, min(8, room, rows // (32 * 64)) + 1):
         if (-(-tiles * splits // sms) * best
@@ -603,6 +644,19 @@ def _pack_fwd(w_ih_t, w_hh_t, bias, geo, H):
             bpad[:, rows])
 
 
+@functools.lru_cache(maxsize=32)
+def _xg_columns(H, cluster, U, device):
+    """(2, C, 4U) int32: the column of xg (B, T, 8H) that each CTA's local
+    gate row takes its gate input from in direction d, d 4H plus the global
+    gate row of :func:`_gate_rows`, or -1 where the unit is padding. The
+    gate-input forward's producers copy by it
+    (``csrc/blstm_cluster_fwd.cuh``)."""
+    rows = _gate_rows(H, cluster, U, torch.device('cpu'))
+    cols = torch.stack([rows + 4 * H * d for d in range(2)])
+    return torch.where(rows < 4 * H, cols, -1).to(device=device,
+                                                   dtype=torch.int32)
+
+
 def _pack_walk(w_hh_t, geo, H):
     """The walk's operand: per CTA, W_hh^T (KH, 4U) restricted to its gate
     rows, as fragments (2, C, KH/16, U/4, 32, 8)."""
@@ -613,30 +667,40 @@ def _sms(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+#: The capacity query of the kernel that each (geometry kind, route)
+#: launches: the forward's projection or gate-input form, the walk with dh in
+#: bf16 (fully fused) or f32 (bidi).
+_SLOT_QUERIES = {('fwd', 'fullfused'): 'tssep_cluster_fwd_slots',
+                 ('fwd_xg', 'bidi'): 'tssep_bidi_fwd_slots',
+                 ('bwd', 'fullfused'): 'tssep_cluster_walk_slots',
+                 ('bwd', 'bidi'): 'tssep_bidi_walk_slots'}
+
+
 @functools.lru_cache(maxsize=256)
-def _cluster_slots(kind, device, cluster, row_tile, chunk, threads, shared):
-    """Clusters of ``cluster`` CTAs of the kernel that a forward (``kind``
-    'fwd') or walk ('bwd') plan launches that ``device`` holds at once, from
+def _cluster_slots(kind, device, cluster, row_tile, chunk, threads, shared,
+                   route='fullfused'):
+    """Clusters of ``cluster`` CTAs of the kernel that a plan of ``kind``
+    launches on ``route`` that ``device`` holds at once, from
     cudaOccupancyMaxActiveClusters on that kernel; None where the query
     fails."""
     n = ctypes.c_int(0)
-    lib = _build.library()
+    query = getattr(_build.library(), _SLOT_QUERIES[kind, route])
     with torch.cuda.device(device):
-        if kind == 'fwd':
-            err = lib.tssep_cluster_fwd_slots(cluster, row_tile, chunk,
-                                              threads, shared, ctypes.byref(n))
+        if kind == 'bwd':
+            err = query(cluster, row_tile, threads, shared, ctypes.byref(n))
         else:
-            err = lib.tssep_cluster_walk_slots(cluster, row_tile, threads,
-                                               shared, ctypes.byref(n))
+            err = query(cluster, row_tile, chunk, threads, shared,
+                        ctypes.byref(n))
     return n.value if err == 0 and n.value > 0 else None
 
 
 @functools.lru_cache(maxsize=64)
-def _geometry(kind, rows, F, H, device):
-    """:func:`cluster_geometry` for a launch on ``device``."""
+def _geometry(kind, rows, F, H, device, route='fullfused'):
+    """:func:`cluster_geometry` for a launch on ``device`` of the kernel
+    that ``kind`` and ``route`` ('fullfused' or 'bidi') name."""
     return cluster_geometry(
         kind, rows, F, H, _sms(device),
-        slots=functools.partial(_cluster_slots, kind, device))
+        slots=functools.partial(_cluster_slots, kind, device, route=route))
 
 
 # ---------------------------------------------------------------------------
@@ -779,8 +843,13 @@ def blstm_bidi_fwd(xg, w_hh_t, *, with_cell=False):
 
     xg: (B, T, 8H), the forward direction's ``x @ W_ih^T + b`` in
     ``[..., :4H]`` and the reverse one's in ``[..., 4H:]``, both in original
-    time order; w_hh_t: (2, H, 4H), same dtype. Returns ``(h, c)`` as
-    :func:`blstm_fullfused_fwd` does.
+    time order, any batch and time strides; w_hh_t: (2, H, 4H), same dtype.
+    Returns ``(h, c)`` as :func:`blstm_fullfused_fwd` does.
+
+    On a CUDA device, bfloat16 storage runs the gate-input form of the
+    clustered Hopper kernel (``csrc/blstm_cluster_fwd.cuh``, geometry from
+    :func:`cluster_geometry` kind 'fwd_xg'); float32 storage, the tests' and
+    checks' mode, runs the first design (``csrc/blstm_common.cuh``).
     """
     _check_stream_input('xg', xg)
     B, T, G2 = xg.shape
@@ -790,6 +859,10 @@ def blstm_bidi_fwd(xg, w_hh_t, *, with_cell=False):
     _check('w_hh_t', w_hh_t, (2, H, 4 * H), xg.dtype, xg.device)
     if xg.device.type == 'cpu':
         return blstm_bidi_fwd_plain(xg, w_hh_t, with_cell=with_cell)
+    if xg.dtype == torch.bfloat16:
+        out = _bidi_fwd_cluster(xg, w_hh_t, with_cell)
+        blstm_bidi_fwd.launches += 1
+        return out
     bt = _launch_tile(xg, H, 2 * H, (w_hh_t,))
     h, c = _outputs(xg, H, with_cell)
     with torch.cuda.device(xg.device):
@@ -800,6 +873,26 @@ def blstm_bidi_fwd(xg, w_hh_t, *, with_cell=False):
             torch.cuda.current_stream(xg.device).cuda_stream)
     _raise_on(err, 'blstm_bidi_fwd')
     blstm_bidi_fwd.launches += 1
+    return h, c
+
+
+def _bidi_fwd_cluster(xg, w_hh_t, with_cell):
+    """The bf16 route of :func:`blstm_bidi_fwd` on a CUDA device."""
+    B, T, _ = xg.shape
+    H = w_hh_t.shape[1]
+    _check_launch(xg, H, (w_hh_t,))
+    geo = _geometry('fwd_xg', B, 8 * H, H, xg.device, 'bidi')
+    whh_p = _pack(w_hh_t, 'fwd', geo, H)
+    cols = _xg_columns(H, geo.cluster, geo.units, xg.device)
+    h, c = _outputs(xg, H, with_cell)
+    with torch.cuda.device(xg.device):
+        err = _build.library().tssep_blstm_bidi_fwd_cluster(
+            xg.data_ptr(), xg.stride(0), xg.stride(1), whh_p.data_ptr(),
+            cols.data_ptr(), h.data_ptr(), c.data_ptr() if with_cell else None,
+            h.stride(0), h.stride(1), B, T, H, geo.cluster, geo.units,
+            geo.active, geo.row_tile, geo.chunk,
+            torch.cuda.current_stream(xg.device).cuda_stream)
+    _raise_on(err, 'blstm_bidi_fwd')
     return h, c
 
 
@@ -958,9 +1051,15 @@ def blstm_bidi_bwd(xg, w_hh_t, h, c, dh):
     """The backward of :func:`blstm_bidi_fwd`.
 
     xg, w_hh_t as for the forward; h, c: (B, T, 2H), the forward's
-    outputs; dh: (B, T, 2H) float32, the cotangent of h. Returns
-    ``(dxg, dw_hh_t)``: dxg (B, T, 8H) in the storage dtype and dw_hh_t
-    (2, H, 4H) float32.
+    outputs; dh: (B, T, 2H) float32, the cotangent of h, any batch and time
+    strides. Returns ``(dxg, dw_hh_t)``: dxg (B, T, 8H) in the storage dtype
+    and dw_hh_t (2, H, 4H) float32.
+
+    On a CUDA device, bfloat16 storage runs the gate-input form of the
+    Hopper design (``csrc/blstm_cluster_bwd.cuh``: the gate pre-activations
+    as one tensor-core product, a clustered walk that writes dxg, tensor-core
+    weight sums); float32 storage, the tests' and checks' mode, runs the
+    first design (``csrc/blstm_bwd_common.cuh``).
     """
     _check_stream_input('xg', xg)
     B, T, G2 = xg.shape
@@ -971,6 +1070,10 @@ def blstm_bidi_bwd(xg, w_hh_t, h, c, dh):
     _check_saved(xg, H, h, c, dh, torch.float32)
     if xg.device.type == 'cpu':
         return blstm_bidi_bwd_plain(xg, w_hh_t, h, c, dh)
+    if xg.dtype == torch.bfloat16:
+        out = _bidi_bwd_cluster(xg, w_hh_t, h, c, dh)
+        blstm_bidi_bwd.launches += 1
+        return out
     bt = _launch_tile(xg, H, 7 * H, (w_hh_t, h, c))
     w_hh = w_hh_t.transpose(1, 2).contiguous()
     dg = torch.empty(2, B, T, 4 * H, dtype=torch.float32, device=xg.device)
@@ -986,6 +1089,48 @@ def blstm_bidi_bwd(xg, w_hh_t, h, c, dh):
             torch.cuda.current_stream(xg.device).cuda_stream)
     _raise_on(err, 'blstm_bidi_bwd')
     blstm_bidi_bwd.launches += 1
+    return dxg, dw
+
+
+#: The launches of the bf16 bidi backward, in order, by their ``parts`` bit.
+BIDI_BWD_PARTS = {'gates': 1, 'walk': 2, 'wgrad': 4}
+
+
+def _bidi_bwd_buffers(xg, H):
+    """The bf16 bidi backward's workspace and outputs for gate inputs xg:
+    ``(dg, dxg, dw, ws)``, the f32 gate gradients (2, B, T, 4H), dxg
+    (B, T, 8H), dW_hh^T (2, H, 4H) and the weight sums' split partials."""
+    B, T, _ = xg.shape
+    splits = gate_wgrad_splits(B * T, H, _sms(xg.device))
+    f32 = dict(dtype=torch.float32, device=xg.device)
+    return (torch.empty(2, B, T, 4 * H, **f32),
+            torch.empty(B, T, 8 * H, dtype=xg.dtype, device=xg.device),
+            torch.empty(2, H, 4 * H, **f32),
+            torch.empty(splits - 1, 2, H, 4 * H, **f32))
+
+
+def _bidi_bwd_cluster(xg, w_hh_t, h, c, dh, parts=7, out=None):
+    """The bf16 route of :func:`blstm_bidi_bwd` on a CUDA device; ``parts``
+    picks its launches (:data:`BIDI_BWD_PARTS`) and ``out`` gives the
+    buffers of :func:`_bidi_bwd_buffers` to reuse, so that each launch can
+    be timed alone."""
+    B, T, _ = xg.shape
+    H = w_hh_t.shape[1]
+    _check_launch(xg, H, (w_hh_t, h, c))
+    geo = _geometry('bwd', B, 8 * H, H, xg.device, 'bidi')
+    wp = _pack_walk(w_hh_t, geo, H)
+    dg, dxg, dw, ws = _bidi_bwd_buffers(xg, H) if out is None else out
+    splits = ws.shape[0] + 1
+    with torch.cuda.device(xg.device):
+        err = _build.library().tssep_blstm_bidi_bwd_cluster(
+            xg.data_ptr(), xg.stride(0), xg.stride(1), w_hh_t.data_ptr(),
+            wp.data_ptr(), h.data_ptr(), c.data_ptr(), h.stride(0),
+            h.stride(1), dh.data_ptr(), dh.stride(0), dh.stride(1),
+            dg.data_ptr(), dxg.data_ptr(), dw.data_ptr(),
+            ws.data_ptr() if splits > 1 else None, B, T, H, geo.cluster,
+            geo.units, geo.active, geo.row_tile, geo.threads, splits, parts,
+            torch.cuda.current_stream(xg.device).cuda_stream)
+    _raise_on(err, 'blstm_bidi_bwd')
     return dxg, dw
 
 

@@ -1,6 +1,15 @@
-// The Hopper design of the fully fused backward (bf16 storage). Replaces,
-// with blstm_fullfused_bwd.cu, the TPU kernel `_ff_bwd_kernel`
-// (tssep_tpu/kernels/blstm.py:861). Four launches on one stream:
+// The Hopper design of the bidirectional LSTM backward (bf16 storage), in two
+// forms:
+// - projection: the fully fused backward. Replaces, with
+//   blstm_fullfused_bwd.cu, the TPU kernel `_ff_bwd_kernel`
+//   (tssep_tpu/kernels/blstm.py:861). Four launches on one stream (1-4).
+// - gate inputs: the backward of the walk from gate inputs xg. Replaces,
+//   with blstm_bidi_bwd.cu, the TPU kernel `_bi_bwd_kernel` (:424). Three
+//   launches (1-3): the gate product sums over h_prev alone (K = H) and adds
+//   xg in its epilogue where the other form adds the bias, the walk also
+//   writes dxg (B, T, 8H) in the storage type from its f32 gate gradients
+//   and takes dh in f32, the weight sums are dW_hh^T alone, and there is no
+//   dx (dx, dW_ih and db are products of dxg outside the kernels).
 //
 // 1. gates: every gate pre-activation at once, [x | h_prev] [W_ih^T; W_hh^T]
 //    + b for all (row, step) and both directions, on the tensor cores (bf16
@@ -26,15 +35,17 @@
 //    on the tensor cores with dg split as above; each output tile sums its
 //    B T rows itself in a fixed order (no atomics). Where the output's tiles
 //    would leave most of a second wave of SMs idle, the rows are cut into
-//    ranges whose partial sums go to the dx buffer (written only by step 4)
-//    and are added in range order by a second pass.
+//    ranges whose partial sums go to a workspace (the projection form: the
+//    dx buffer, written only by step 4) and are added in range order by a
+//    second pass.
 // 4. dx: sum over the directions of round_bf16(dg_d W_ih,d), each
 //    direction's product rounded to bf16 and the two summed in f32, as the
 //    TPU kernel wrote dx per direction in the storage type; dg split as
 //    above.
 //
 // The walk's geometry (C, U, BT, threads) comes from `cluster_geometry` in
-// kernels/blstm.py; `walk_shared_bytes` is its `_walk_shared`.
+// kernels/blstm.py (kind 'bwd', for both forms); `walk_shared_bytes` is its
+// `_walk_shared`.
 #pragma once
 
 #include <type_traits>
@@ -198,7 +209,8 @@ int launch_gemm(const Op& op, int M, int N, int Z, cudaStream_t stream) {
 __device__ __forceinline__ __nv_bfloat16 bf16_zero() { return __float2bfloat16(0.f); }
 
 // The (B, T) rows of one direction's [x | h_prev | 1] (h_prev zero before
-// the walk's first step).
+// the walk's first step). In the gate-input form F is 0, x is xg and only
+// the pointer to a row's xg is read (GatesOp's epilogue).
 struct Rows {
   const __nv_bfloat16* x;
   long long x_sb, x_st;
@@ -223,7 +235,9 @@ struct Rows {
   }
 };
 
-// dg[d] (B T, 4H) = [x | h_prev] [W_ih^T; W_hh^T] + b.
+// dg[d] (B T, 4H) = [x | h_prev] [W_ih^T; W_hh^T] + b; with XG (the
+// gate-input form, F = 0) h_prev W_hh^T + xg[d], xg added in the epilogue.
+template <bool XG>
 struct GatesOp {
   static constexpr bool A_K_FAST = true, B_K_FAST = false;
   // two CTAs an SM (at most 128 registers a thread): the loads of one hide
@@ -232,7 +246,7 @@ struct GatesOp {
   Rows rows;
   const __nv_bfloat16* w_ih_t;  // (2, F, 4H)
   const __nv_bfloat16* w_hh_t;  // (2, H, 4H)
-  const float* bias;            // (2, 4H)
+  const float* bias;            // (2, 4H); null with XG
   float* dg;
   long long M;
   int N, K;
@@ -251,13 +265,20 @@ struct GatesOp {
                  : w_hh_t[((size_t)d * rows.H + (k - F)) * N + n];
   }
   __device__ __forceinline__ void store(int d, int, long long m, int n, float v) const {
-    if (m < M && n < N) dg[((size_t)d * M + m) * N + n] = v + bias[d * N + n];
+    if (m >= M || n >= N) return;
+    if constexpr (XG) {
+      v += __bfloat162float(rows.x[rows.ptr(d, m).x + (long long)d * N + n]);
+    } else {
+      v += bias[d * N + n];
+    }
+    dg[((size_t)d * M + m) * N + n] = v;
   }
 };
 
-// out[d] (F + H + 1, 4H) = [x | h_prev | 1]^T dg[d]. With `splits` > 1 the
-// B T rows are cut into that many ranges of `kps` rows (blockIdx.z = 2 split
-// + d): split 0 writes out, split s > 0 the partial ws[s - 1], and
+// out[d] (M, 4H) = [x | h_prev | 1]^T dg[d], M = F + H + 1 (projection
+// form) or H (gate-input form: dW_hh^T alone). With `splits` > 1 the B T
+// rows are cut into that many ranges of `kps` rows (blockIdx.z = 2 split +
+// d): split 0 writes out, split s > 0 the partial ws[s - 1], and
 // splitk_add_kernel then adds the partials to out in split order.
 struct WgradOp {
   static constexpr bool A_K_FAST = false, B_K_FAST = false;
@@ -336,10 +357,15 @@ struct WalkArgs {
   float* dg;                // (2, B, T, 4H): pre-activations in, gate gradients out
   const __nv_bfloat16* c;   // (B, T, 2H), strides (s_sb, s_st, 1)
   long long s_sb, s_st;
-  const __nv_bfloat16* dh;  // (B, T, 2H), strides (d_sb, d_st, 1)
+  const void* dh;           // (B, T, 2H) of the walk's DH type, strides (d_sb, d_st, 1)
   long long d_sb, d_st;
+  __nv_bfloat16* dxg;       // gate-input form: (B, T, 8H) strides (g_sb, g_st, 1); else null
+  long long g_sb, g_st;
   int B, T, H, U, nact, KH;
 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 constexpr int kWalkMaxThreads = 512, kWalkEpt = 4;
 
@@ -348,7 +374,8 @@ inline size_t walk_shared_bytes(int MT, int KH, int U, int nact, int BT) {
          16;
 }
 
-template <int NB>
+// DH: the type of dh, bf16 (projection form) or float (gate-input form).
+template <int NB, typename DH>
 __global__ void __launch_bounds__(kWalkMaxThreads, 1) cluster_walk_kernel(const WalkArgs a) {
   constexpr int BT = NB * 8;
   const int cta = (int)cluster_rank();
@@ -361,6 +388,7 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) cluster_walk_kernel(const 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int nwarps = blockDim.x / 32, nthr = blockDim.x;
   const int q = lane >> 2, tq = lane & 3;
+  const DH* dh = static_cast<const DH*>(a.dh);
 
   extern __shared__ __align__(16) unsigned char smem[];
   uint4* wp_s = reinterpret_cast<uint4*>(smem);
@@ -406,7 +434,7 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) cluster_walk_kernel(const 
           const long long so = b * a.s_sb + dir * H + ug;
           cv[i] = __bfloat162float(a.c[so + t * a.s_st]);
           cpv[i] = s > 0 ? __bfloat162float(a.c[so + tp * a.s_st]) : 0.f;
-          dhv[i] = __bfloat162float(a.dh[b * a.d_sb + t * a.d_st + dir * H + ug]);
+          dhv[i] = to_f32(dh[b * a.d_sb + t * a.d_st + dir * H + ug]);
         }
       }
     };
@@ -452,6 +480,12 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) cluster_walk_kernel(const 
           float* g = a.dg + (((size_t)dir * a.B + b0 + en[i]) * a.T + t) * G + U * cta + eu[i];
 #pragma unroll
           for (int k = 0; k < 4; ++k) g[k * H] = dgv[k];
+          if (a.dxg != nullptr) {  // JAX's dgates.astype(dxg_ref.dtype)
+            __nv_bfloat16* gx =
+                a.dxg + (b0 + en[i]) * a.g_sb + t * a.g_st + dir * G + U * cta + eu[i];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) gx[k * H] = __float2bfloat16(dgv[k]);
+          }
         }
         // the B operand of dh_prev: row n, local gate row 16 (u / 4) + 4 g + u % 4
         const int m = 16 * (eu[i] >> 2) + (eu[i] & 3);
@@ -512,15 +546,18 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) cluster_walk_kernel(const 
 
 using WalkKernel = void (*)(WalkArgs);
 
-// The instance of cluster_walk_kernel for row tile BT, or null.
+// The instance of cluster_walk_kernel for row tile BT and dh of type DH, or
+// null.
+template <typename DH>
 inline WalkKernel walk_kernel(int BT) {
-  if (BT == 8) return cluster_walk_kernel<1>;
-  if (BT == 16) return cluster_walk_kernel<2>;
-  if (BT == 24) return cluster_walk_kernel<3>;
-  if (BT == 32) return cluster_walk_kernel<4>;
+  if (BT == 8) return cluster_walk_kernel<1, DH>;
+  if (BT == 16) return cluster_walk_kernel<2, DH>;
+  if (BT == 24) return cluster_walk_kernel<3, DH>;
+  if (BT == 32) return cluster_walk_kernel<4, DH>;
   return nullptr;
 }
 
+template <typename DH>
 inline int cluster_walk(const WalkArgs& a, int C, int BT, int threads, cudaStream_t stream) {
   const int MT = a.U / 4;
   if (threads > kWalkMaxThreads || threads % 32 != 0 || a.U % 4 != 0 || a.nact > C ||
@@ -528,7 +565,7 @@ inline int cluster_walk(const WalkArgs& a, int C, int BT, int threads, cudaStrea
     return (int)cudaErrorInvalidValue;
   const size_t smem = walk_shared_bytes(MT, a.KH, a.U, a.nact, BT);
   const dim3 grid(C, (a.B + BT - 1) / BT, 2);
-  return launch_clusters(walk_kernel(BT), grid, threads, smem, C, stream, a);
+  return launch_clusters(walk_kernel<DH>(BT), grid, threads, smem, C, stream, a);
 }
 
 }  // namespace tc

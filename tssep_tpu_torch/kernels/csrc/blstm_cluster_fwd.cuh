@@ -1,8 +1,12 @@
-// The Hopper design of the fully fused forward (bf16 storage): one
-// bidirectional LSTM layer, x_t W_ih^T + b computed inside the kernel, so no
-// (B, T, 8H) gate tensor is ever written. Replaces, with
-// blstm_fullfused_fwd.cu, the TPU kernel `_ff_fwd_kernel`
-// (tssep_tpu/kernels/blstm.py:797).
+// The Hopper design of the bidirectional LSTM forward (bf16 storage), in two
+// forms chosen by a template parameter XG:
+// - projection (XG false): the fully fused forward, x_t W_ih^T + b computed
+//   inside the kernel, so no (B, T, 8H) gate tensor is ever written.
+//   Replaces, with blstm_fullfused_fwd.cu, the TPU kernel `_ff_fwd_kernel`
+//   (tssep_tpu/kernels/blstm.py:797).
+// - gate inputs (XG true): the walk from gate inputs xg (B, T, 8H) computed
+//   outside. Replaces, with blstm_bidi_fwd.cu, the TPU kernel
+//   `_bi_fwd_kernel` (tssep_tpu/kernels/blstm.py:374).
 //
 // What bounds the layer on an H100 is its serial chain: T steps, each a
 // product with W_hh that needs the previous step's h. The design keeps that
@@ -21,20 +25,28 @@
 //   sends as soon as its units are updated and waits only at the start of
 //   the next step; one barrier of its consumer warps between the product and
 //   the sends keeps peers from overwriting a half that it still reads.
-// - The input projection is off the chain: producer warps compute
-//   x W_ih^T + b on the tensor cores for a chunk of TC steps ahead of the
-//   walk, into a two-chunk ring of f32 gate inputs in shared memory that the
-//   consumer warps read; named barriers pass the ring's halves between the
-//   two roles. The W_ih^T slice (154 KB at F 513 and C 8) does not fit
-//   beside W_hh^T, so each producer lane streams its fragments from L2 per
-//   chunk, 16 bytes a load straight into registers, 8 in flight. A cp.async
-//   or TMA ring would need shared memory that the 24- and 32-row tiles do
-//   not have left; at one step a chunk (those tiles) the stream is bound by
-//   L2 bandwidth, not latency: a two-stage register pipeline gained nothing.
-// The reverse direction walks t = T-1 .. 0 over x in place; no time padding.
-// The launch geometry (C, U, BT, TC, the x block KX) comes from
-// `cluster_geometry` in kernels/blstm.py; the shared-memory formula below is
-// the same as its `_fwd_shared`.
+// - The gate inputs are off the chain: producer warps fill, a chunk of TC
+//   steps ahead of the walk, a two-chunk ring of f32 gate inputs in shared
+//   memory, in the consumers' accumulator layout; named barriers pass the
+//   ring's halves between the two roles.
+//   - Projection form: the producers compute x W_ih^T + b on the tensor
+//     cores. The W_ih^T slice (154 KB at F 513 and C 8) does not fit beside
+//     W_hh^T, so each producer lane streams its fragments from L2 per chunk,
+//     16 bytes a load straight into registers, 8 in flight. A cp.async or
+//     TMA ring would need shared memory that the 24- and 32-row tiles do not
+//     have left; at one step a chunk (those tiles) the stream is bound by L2
+//     bandwidth, not latency: a two-stage register pipeline gained nothing.
+//   - Gate-input form: the producers copy the CTA's 4U gate columns of xg
+//     for each row and step, every load of a chunk in flight at once. The
+//     column of each local gate row comes from a table the host builds
+//     (kernels/blstm.py `_xg_columns`), so any H and any xg strides work
+//     (the columns of one gate are 2-byte aligned only where H is odd). With
+//     no x staging and no W_ih stream, the chunk is longer (up to 8 steps,
+//     64 row-steps), so the loads of a chunk have several steps to land.
+// The reverse direction walks t = T-1 .. 0 over x (or xg) in place; no time
+// padding, no flipped copy. The launch geometry (C, U, BT, TC, the x block
+// KX) comes from `cluster_geometry` in kernels/blstm.py ('fwd' and 'fwd_xg');
+// the shared-memory formula below is the same as its `_fwd_shared`.
 #pragma once
 
 #include "blstm_cluster.cuh"
@@ -44,11 +56,12 @@ namespace {
 namespace tc {
 
 struct FwdArgs {
-  const __nv_bfloat16* x;  // (B, T, F), strides (x_sb, x_st, 1)
+  const __nv_bfloat16* x;  // (B, T, F), strides (x_sb, x_st, 1); or xg (B, T, 8H)
   long long x_sb, x_st;
   const uint4* wih;        // (2, C, U/4, KF/16, 32) fragments of W_ih^T slices
   const uint4* whh;        // (2, C, U/4, KH/16, 32) fragments of W_hh^T slices
   const float* bias;       // (2, C, 4U) in local gate-row order
+  const int* cols;         // gate inputs: (2, C, 4U) xg column of each local gate row, -1 padding
   __nv_bfloat16* h_out;    // (B, T, 2H), strides (o_sb, o_st, 1)
   __nv_bfloat16* c_out;    // the same, or null
   long long o_sb, o_st;
@@ -66,12 +79,15 @@ constexpr int kWBatch = 8;           // W_ih^T fragments in flight per producer 
 // empty, 6 producers.
 constexpr int kBarCons = 1, kBarFull = 2, kBarEmpty = 4, kBarProd = 6;
 
-inline size_t fwd_shared_bytes(int MT, int KH, int BT, int TC, int KX) {
+// The W_hh^T slice, two h buffers, the ring, the staged x rows (projection
+// form only) and two mbarriers.
+inline size_t fwd_shared_bytes(int MT, int KH, int BT, int TC, int KX, bool xg) {
   return (size_t)MT * (KH / 16) * 512 + (size_t)4 * BT * (KH + 8) +
-         (size_t)kFwdRing * TC * MT * (BT / 8) * 512 + (size_t)2 * TC * BT * (KX + 8) + 16;
+         (size_t)kFwdRing * TC * MT * (BT / 8) * 512 + (xg ? 0 : (size_t)2 * TC * BT * (KX + 8)) +
+         16;
 }
 
-template <int NB, int TC>
+template <int NB, int TC, bool XG>
 __global__ void __launch_bounds__(kFwdMaxThreads, 1) cluster_fwd_kernel(const FwdArgs a) {
   constexpr int BT = NB * 8;
   constexpr int NC = TC * NB;  // n-tiles of one chunk
@@ -92,7 +108,7 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 1) cluster_fwd_kernel(const Fw
   __nv_bfloat16* hbuf = reinterpret_cast<__nv_bfloat16*>(whh_s + (size_t)MT * KSH * 32);
   float4* ring = reinterpret_cast<float4*>(hbuf + 2 * BT * HS);
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(ring + (size_t)kFwdRing * TC * MT * NB * 32);
-  uint64_t* hbar = reinterpret_cast<uint64_t*>(xs + TC * BT * XS);
+  uint64_t* hbar = reinterpret_cast<uint64_t*>(xs + (XG ? 0 : TC * BT * XS));
 
   const bool active = cta < a.nact;
   for (int i = threadIdx.x; i < BT * HS; i += nthr)  // both halves: h_{-1} = 0 and pads
@@ -200,6 +216,46 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 1) cluster_fwd_kernel(const Fw
         }
       }
     }
+  } else if (active && XG) {
+    // ---- producer, gate inputs: thread i of the 8U producer threads copies
+    // local gate row m = i % 4U of tile rows n = r0 + 2 k (r0 = i / 4U) for
+    // each step of a chunk ----------------------------------------------------
+    const int i = threadIdx.x - MT * 32;
+    const int m = i % (4 * a.U), r0 = i / (4 * a.U);
+    const int col = a.cols[(size_t)(dir * C + cta) * 4 * a.U + m];
+    const __nv_bfloat16* xr = a.x + (long long)(b0 + r0) * a.x_sb + col;
+    const int nrows = col < 0 ? 0 : (a.B - b0 - r0 + 1) / 2;  // of this thread's rows, those < B
+    // (m, n) in the ring: lane 4 (m % 8) + n % 8 / 2 of m-tile m / 16, n-tile
+    // n / 8, value 2 (m % 16 / 8) + n % 2 (the m16n8 accumulator layout);
+    // with n = r0 + 2 k that is n-tile k / 4, lane part k % 4, value part r0
+    const int mm = m % 16;
+    float* ringr = reinterpret_cast<float*>(ring) + (m / 16) * NB * 128 + 16 * (mm % 8) +
+                   2 * (mm / 8) + r0;
+    constexpr int RK = BT / 2;  // this thread's rows of the tile
+    const int nchunks = (a.T + TC - 1) / TC;
+    for (int j = 0; j < nchunks; ++j) {
+      const int slot = j % kFwdRing;
+      if (j >= kFwdRing) named_sync(kBarEmpty + slot, nthr);
+      float v[TC][RK];
+#pragma unroll
+      for (int tau = 0; tau < TC; ++tau) {
+        const int s = j * TC + tau;
+        const __nv_bfloat16* xt = xr + (long long)(rev ? a.T - 1 - s : s) * a.x_st;
+#pragma unroll
+        for (int k = 0; k < RK; ++k)
+          v[tau][k] = (s < a.T && k < nrows) ? __bfloat162float(__ldg(xt + 2 * k * a.x_sb)) : 0.f;
+      }
+#pragma unroll
+      for (int tau = 0; tau < TC; ++tau)
+#pragma unroll
+        for (int k = 0; k < RK; ++k)
+          ringr[(size_t)(slot * TC + tau) * MT * NB * 128 + (k / 4) * 128 + 4 * (k % 4)] =
+              v[tau][k];
+      named_arrive(kBarFull + slot, nthr);
+    }
+    // take the consumers' last releases, so no barrier is left half-arrived
+    for (int j = (nchunks > kFwdRing ? nchunks - kFwdRing : 0); j < nchunks; ++j)
+      named_sync(kBarEmpty + j % kFwdRing, nthr);
   } else if (active) {
     // ---- producer: warp MT + mt computes m-tile mt of each chunk ---------
     const int mt = warp - MT;
@@ -306,10 +362,12 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 1) cluster_fwd_kernel(const Fw
 
 using FwdKernel = void (*)(FwdArgs);
 
-// The instance of cluster_fwd_kernel for row tile BT and chunk TC, or null.
+// The instance of cluster_fwd_kernel for row tile BT and chunk TC, or null:
+// the projection form takes TC BT <= 32, the gate-input form TC BT <= 64.
+template <bool XG>
 inline FwdKernel fwd_kernel(int BT, int TC) {
 #define TSSEP_CLUSTER_FWD(NB_, TC_) \
-  if (BT == 8 * NB_ && TC == TC_) return cluster_fwd_kernel<NB_, TC_>
+  if (BT == 8 * NB_ && TC == TC_) return cluster_fwd_kernel<NB_, TC_, XG>
   TSSEP_CLUSTER_FWD(1, 1);
   TSSEP_CLUSTER_FWD(1, 2);
   TSSEP_CLUSTER_FWD(1, 4);
@@ -317,19 +375,26 @@ inline FwdKernel fwd_kernel(int BT, int TC) {
   TSSEP_CLUSTER_FWD(2, 2);
   TSSEP_CLUSTER_FWD(3, 1);
   TSSEP_CLUSTER_FWD(4, 1);
+  if constexpr (XG) {
+    TSSEP_CLUSTER_FWD(1, 8);
+    TSSEP_CLUSTER_FWD(2, 4);
+    TSSEP_CLUSTER_FWD(3, 2);
+    TSSEP_CLUSTER_FWD(4, 2);
+  }
 #undef TSSEP_CLUSTER_FWD
   return nullptr;
 }
 
 // One layer, both directions, clusters of C CTAs. Returns a cudaError_t.
+template <bool XG>
 inline int cluster_fwd(const FwdArgs& a, int C, int BT, int TC, cudaStream_t stream) {
   const int MT = a.U / 4;
   const int threads = 2 * MT * 32;
   if (threads > kFwdMaxThreads || a.U % 4 != 0 || a.nact > C || BT % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_shared_bytes(MT, a.KH, BT, TC, a.KX);
+  const size_t smem = fwd_shared_bytes(MT, a.KH, BT, TC, a.KX, XG);
   const dim3 grid(C, (a.B + BT - 1) / BT, 2);
-  return launch_clusters(fwd_kernel(BT, TC), grid, threads, smem, C, stream, a);
+  return launch_clusters(fwd_kernel<XG>(BT, TC), grid, threads, smem, C, stream, a);
 }
 
 }  // namespace tc

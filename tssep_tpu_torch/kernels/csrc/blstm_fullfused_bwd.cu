@@ -82,7 +82,7 @@ extern "C" int tssep_blstm_fullfused_bwd_cluster(
     return (int)cudaErrorInvalidValue;
   int err = 0;
   if (parts & 1) {
-    GatesOp op;
+    GatesOp<false> op;
     op.rows = r;
     op.w_ih_t = static_cast<const __nv_bfloat16*>(w_ih_t);
     op.w_hh_t = static_cast<const __nv_bfloat16*>(w_hh_t);
@@ -101,16 +101,18 @@ extern "C" int tssep_blstm_fullfused_bwd_cluster(
     a.c = static_cast<const __nv_bfloat16*>(c);
     a.s_sb = s_sb;
     a.s_st = s_st;
-    a.dh = static_cast<const __nv_bfloat16*>(dh);
+    a.dh = dh;
     a.d_sb = d_sb;
     a.d_st = d_st;
+    a.dxg = nullptr;
+    a.g_sb = a.g_st = 0;
     a.B = B;
     a.T = T;
     a.H = H;
     a.U = U;
     a.nact = nact;
     a.KH = (H + 15) / 16 * 16;
-    err = cluster_walk(a, C, bt, threads, stream);
+    err = cluster_walk<__nv_bfloat16>(a, C, bt, threads, stream);
     if (err != 0) return err;
   }
   if (parts & 4) {
@@ -151,5 +153,5 @@ extern "C" int tssep_blstm_fullfused_bwd_cluster(
 // Returns a cudaError_t.
 extern "C" int tssep_cluster_walk_slots(int C, int bt, int threads, int smem, int* slots) {
   using namespace tssep::tc;
-  return cluster_slots(walk_kernel(bt), threads, (size_t)smem, C, slots);
+  return cluster_slots(walk_kernel<__nv_bfloat16>(bt), threads, (size_t)smem, C, slots);
 }

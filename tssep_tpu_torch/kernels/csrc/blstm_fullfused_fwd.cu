@@ -55,6 +55,7 @@ extern "C" int tssep_blstm_fullfused_fwd_cluster(
   a.wih = static_cast<const uint4*>(wih_p);
   a.whh = static_cast<const uint4*>(whh_p);
   a.bias = static_cast<const float*>(bias_p);
+  a.cols = nullptr;
   a.h_out = static_cast<__nv_bfloat16*>(h_out);
   a.c_out = static_cast<__nv_bfloat16*>(c_out);
   a.o_sb = o_sb;
@@ -68,7 +69,7 @@ extern "C" int tssep_blstm_fullfused_fwd_cluster(
   a.KH = (H + 15) / 16 * 16;
   a.KF = (F + 15) / 16 * 16;
   a.KX = kx;
-  return tssep::tc::cluster_fwd(a, C, bt, tc, static_cast<cudaStream_t>(stream));
+  return tssep::tc::cluster_fwd<false>(a, C, bt, tc, static_cast<cudaStream_t>(stream));
 }
 
 // Clusters of C CTAs of the forward at row tile bt and chunk tc, each of
@@ -77,5 +78,5 @@ extern "C" int tssep_blstm_fullfused_fwd_cluster(
 extern "C" int tssep_cluster_fwd_slots(int C, int bt, int tc, int threads, int smem,
                                        int* slots) {
   using namespace tssep::tc;
-  return cluster_slots(fwd_kernel(bt, tc), threads, (size_t)smem, C, slots);
+  return cluster_slots(fwd_kernel<false>(bt, tc), threads, (size_t)smem, C, slots);
 }
