@@ -15,16 +15,22 @@ Phases, each of which must pass:
    and bound: the forward kernels at a ragged small shape, at the shapes of
    a served request (batch 16) and at the flagship training shapes (batch
    256); the backward kernels at a ragged shape and at the training shapes
-   of batch 16 and of batch 256. The fully fused pair and the bidi pair run,
-   in bfloat16, the clustered Hopper kernels (``csrc/blstm_cluster_*.cuh``,
-   the bidi pair in their gate-input form): each forward is timed beside the
-   first design's kernels doing the same work (the spill forward without
-   boundaries; ``lstm_fwd`` for each direction), the backward by its
-   launches (gate product, walk, weight sums and, fully fused, dx), each
-   between CUDA events, the bidi backward beside ``lstm_bwd`` for each
-   direction too. The gate-input kernels (the bidi and the unidirectional
-   pair) are timed beside one cuDNN LSTM call that computes their function
-   from xg: input weights that select xg's columns, zero biases;
+   of batch 16 and of batch 256. The fully fused pair, the bidi pair and
+   the conditioned pair run, in bfloat16, the clustered Hopper kernels
+   (``csrc/blstm_cluster_*.cuh``, the bidi pair in their gate-input form,
+   the conditioned pair in their conditioned form): each forward is timed
+   beside the first design's kernels doing the same work (the spill forward
+   without boundaries; ``lstm_fwd`` for each direction; the conditioned
+   pair's own first design), the backward by its launches (gate product,
+   walk, weight sums and, fully fused, dx; conditioned, dcond and its
+   split), each between CUDA events, the bidi backward beside ``lstm_bwd``
+   for each direction and the conditioned one beside its first design too.
+   The conditioned pair is also timed beside the route the default model
+   takes on the same work: the materialized product and the clustered fully
+   fused kernel at B S rows. The gate-input kernels (the bidi and the
+   unidirectional pair) are timed beside one cuDNN LSTM call that computes
+   their function from xg: input weights that select xg's columns, zero
+   biases;
 4. serving: the flagship TS-SEP model (``bench.py:98-106``, random weights
    from a seed) answers 3 requests of batch 16 through the kernels, which the
    launch counters prove, and its masks and waveforms agree with the same
@@ -56,8 +62,12 @@ Phases, each of which must pass:
 13. training with ``fullfuse=False, bidi=False``: 2 steps, every direction
     of every layer through the unidirectional pair.
 
-The last two lines of standard output are the kernels' JSON line and the
-device's JSON line. Without CUDA it exits with code 1 and prints no result.
+Before them a ``cond_fuse`` line sums up the conditioned pair in bfloat16
+at batch 16: each kernel's time, bound, first design's time, materialized
+route's time and cuDNN yardstick, and the times and peak memory of
+``serve cond_fuse`` and ``train cond_fuse``. The last two lines of standard
+output are the kernels' JSON line and the device's JSON line. Without CUDA
+it exits with code 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -116,13 +126,16 @@ SERVE_ATOL = {F32: 1e-4, BF16: 5e-2}
 #: to bf16, where such a difference flips a rounding now and then: one bf16
 #: ulp, 2^-8 of the value.
 BWD_RTOL = {F32: 1e-4, BF16: 1e-2}
-#: The fully fused pair's bfloat16 route (the clustered kernels): forward
-#: max abs error of h and c, backward each output's error over its peak. One
-#: bf16 ulp of c (2^-6 between 2 and 4) flipped by another f32 sum order;
-#: dx rounded to bf16 per direction, the gate gradients entering the tensor
-#: cores as a two-term bf16 split (relative error ~2^-16).
+#: The clustered kernels' bfloat16 route: forward max abs error of h and c,
+#: backward each output's error over its peak. One bf16 ulp of c (2^-6
+#: between 2 and 4) flipped by another f32 sum order; dx rounded to bf16 per
+#: direction (the conditioned dx and daux once), the gate gradients
+#: entering the tensor cores as a two-term bf16 split (relative error
+#: ~2^-16).
 CLUSTER_TOL = {'blstm_fullfused_fwd': 1.6e-2, 'blstm_fullfused_bwd': 5e-3,
-               'blstm_bidi_fwd': 1.6e-2, 'blstm_bidi_bwd': 5e-3}
+               'blstm_bidi_fwd': 1.6e-2, 'blstm_bidi_bwd': 5e-3,
+               'blstm_fullfused_cond_fwd': 1.6e-2,
+               'blstm_fullfused_cond_bwd': 5e-3}
 #: The sources of the kernels each wrapper launches, by storage type.
 _CLUSTERED = {
     'fwd': {'bfloat16': 'tssep_tpu_torch/kernels/csrc/blstm_cluster_fwd.cuh',
@@ -132,7 +145,9 @@ _CLUSTERED = {
 DESIGNS = {'blstm_fullfused_fwd': _CLUSTERED['fwd'],
            'blstm_fullfused_bwd': _CLUSTERED['bwd'],
            'blstm_bidi_fwd': _CLUSTERED['fwd'],
-           'blstm_bidi_bwd': _CLUSTERED['bwd']}
+           'blstm_bidi_bwd': _CLUSTERED['bwd'],
+           'blstm_fullfused_cond_fwd': _CLUSTERED['fwd'],
+           'blstm_fullfused_cond_bwd': _CLUSTERED['bwd']}
 #: One training step, kernels against plain versions: the loss (abs) and
 #: each parameter's gradient (max abs error over max abs value). float32:
 #: f32 sums in another order through the forward, the ISTFT and the
@@ -203,14 +218,16 @@ BIDI_BWD_CASES = [('ragged', 13, 23, 16),
                   ('train birnn2', 16, FRAMES, HIDDEN),
                   ('birnn2', 256, FRAMES, HIDDEN),
                   ('fullfuse=False birnn0', 16 * SPEAKERS, FRAMES, HIDDEN)]
-#: (label, B, S, T, F, H) of the conditioned kernels' calls: birnn0 of a
-#: served request or a training step at batch 16, and at batch 256.
+#: (label, B, S, T, F, H) of the conditioned kernels' calls: two ragged
+#: shapes (the second with 8-row tiles that straddle groups of 3 speakers
+#: and CTAs that own no unit), birnn0 of a served request or a training step
+#: at batch 16 (128 rows), and at batch 256 (2048 rows, more than one wave).
 COND_CASES = [('ragged', 3, 4, 23, 12, 16),
+              ('ragged S=3', 5, 3, 37, 40, 37),
               ('serve birnn0', 16, SPEAKERS, FRAMES, BINS, HIDDEN),
               ('birnn0', 256, SPEAKERS, FRAMES, BINS, HIDDEN)]
-COND_BWD_CASES = [('ragged', 3, 4, 23, 12, 16),
-                  ('train birnn0', 16, SPEAKERS, FRAMES, BINS, HIDDEN),
-                  ('birnn0', 256, SPEAKERS, FRAMES, BINS, HIDDEN)]
+COND_BWD_CASES = [(label.replace('serve', 'train'), *dims)
+                  for label, *dims in COND_CASES]
 #: The yardstick of the conditioned kernels: no single PyTorch call computes
 #: the layer, so the materialized product and cuDNN's LSTM, timed together.
 COND_LIBRARY = 'product + cuDNN, 2 calls'
@@ -282,7 +299,7 @@ def phase_device():
 #: Kernel names of the clustered bfloat16 route, as ptxas and the profiler
 #: show them.
 CLUSTER_KERNELS = ('cluster_fwd_kernel', 'cluster_walk_kernel', 'GatesOp',
-                   'WgradOp', 'DxOp', 'splitk_add_kernel')
+                   'WgradOp', 'DxOp', 'DcondOp', 'splitk_add_kernel')
 
 
 def _ptxas_summary(log_text):
@@ -304,8 +321,8 @@ def phase_build():
     for line in result.log.splitlines():
         if line.strip():
             log(f'  {line.strip()}')
-    log('ptxas, clustered kernels (bf16 route of the fully fused and bidi '
-        'pairs):')
+    log('ptxas, clustered kernels (bf16 route of the fully fused, bidi and '
+        'conditioned pairs):')
     for name, entry, tail in _ptxas_summary(result.log):
         log(f'  {name}: {entry}: {" | ".join(tail)}')
     _build.library()
@@ -499,10 +516,16 @@ def _cond_inputs(B, S, T, F, H, dtype, gen):
     return xs, aux, w_ih_t, w_hh_t, bias
 
 
+def _materialized(xs, aux):
+    """The conditioned rows (B S, T, F) as the default model makes them."""
+    B, T, F = xs.shape
+    return (xs[:, None] * aux[:, :, None]).reshape(B * aux.shape[1], T, F)
+
+
 def cond_case(label, B, S, T, F, H, dtype, gen):
     size = torch.finfo(dtype).bits // 8
     args = _cond_inputs(B, S, T, F, H, dtype, gen)
-    xs, aux = args[:2]
+    xs, aux, w_ih_t, w_hh_t, bias = args
     got = kb.blstm_fullfused_cond_fwd(*args, with_cell=True)
     want = kb.blstm_fullfused_cond_fwd_plain(*args, with_cell=True)
     lstm = torch.nn.LSTM(F, H, bidirectional=True, batch_first=True,
@@ -511,16 +534,56 @@ def cond_case(label, B, S, T, F, H, dtype, gen):
     rows = B * S
     # operations: the recurrence's products, and the product xs * aux; bytes:
     # xs, aux and the weights read once, h written once
-    return _case(
+    row = _case(
         f'blstm_fullfused_cond_fwd {label} B={B} S={S} T={T} F={F} H={H}',
         dtype, lambda: kb.blstm_fullfused_cond_fwd(*args),
         lambda: kb.blstm_fullfused_cond_fwd_plain(*args), got, want,
         flops=2 * rows * T * 2 * (F + H) * 4 * H + rows * T * F,
         nbytes=size * (B * T * F + rows * F + 2 * (F + H) * 4 * H
                        + rows * T * 2 * H) + 4 * 2 * 4 * H,
-        library=lambda: lstm((xs[:, None] * aux[:, :, None]).reshape(
-            rows, T, F)),
-        library_label=COND_LIBRARY)
+        library=lambda: lstm(_materialized(xs, aux)),
+        library_label=COND_LIBRARY,
+        tol=CLUSTER_TOL['blstm_fullfused_cond_fwd'] if dtype == BF16
+        else None)
+    row['design'] = DESIGNS['blstm_fullfused_cond_fwd'][row['dtype']]
+    if dtype == BF16:
+        row['first_design_ms'] = cuda_ms(
+            lambda: kb._fullfused_cond_fwd_first(*args, False))
+        # the default model's route: the product, then the clustered fully
+        # fused forward at B S rows; and that kernel alone on the product
+        # (made outside the timed call), whose consumers and walk are the
+        # conditioned kernel's: the difference is the conditioned staging
+        row['materialized_ms'] = cuda_ms(lambda: kb.blstm_fullfused_fwd(
+            _materialized(xs, aux), w_ih_t, w_hh_t, bias))
+        x = _materialized(xs, aux)
+        row['fullfused_ms'] = cuda_ms(
+            lambda: kb.blstm_fullfused_fwd(x, w_ih_t, w_hh_t, bias))
+        del x
+        geo = kb._geometry('fwd_cond', rows, F, H, xs.device, 'cond')
+        row['geometry'] = dataclasses.asdict(geo)
+        split = _split_x_geometry(geo, rows, F, H)
+        if split is not None:
+            row['split_x_ms'] = cuda_ms(lambda: kb._fullfused_cond_fwd_cluster(
+                *args, False, geo=split))
+            row['split_x_geometry'] = dataclasses.asdict(split)
+    return row
+
+
+def _split_x_geometry(geo, rows, F, H):
+    """Where no plan of the conditioned forward fits one wave, the plan of
+    the largest row tile, 32 rows, if it holds the tile's aux rows only with
+    x staged in blocks of F (the plan that :func:`kb.cluster_geometry`
+    passes over for a smaller tile that stages all of F); else None."""
+    KF = -(-F // 16) * 16
+    plan = kb._fwd_plan(geo.units // 4, -(-H // 16) * 16, KF, 32, KF)
+    if geo.waves == 1 or geo.row_tile == 32 or plan is None or plan[3] == KF:
+        return None
+    threads, shared, chunk, k_block = plan
+    tiles = -(-rows // 32)
+    return dataclasses.replace(
+        geo, row_tile=32, tiles=tiles, threads=threads, shared=shared,
+        chunk=chunk, k_block=k_block, clusters=2 * tiles,
+        clusters_per_wave=min(geo.clusters_per_wave, 2 * tiles))
 
 
 def bidi_case(label, B, T, H, dtype, gen):
@@ -810,8 +873,9 @@ def cond_bwd_case(label, B, S, T, F, H, dtype, gen):
 
     # operations: the fully fused backward's over the B S conditioned rows
     # (gate recompute on storage operands; dh, the weight and bias sums and
-    # dcond on f32 ones) and the split into dx and daux (2 B S T F
-    # multiply-adds, f32). bytes: xs, aux, h, c, dh and the weights read
+    # dcond on f32 ones, in bf16 storage each as two bf16 products, the
+    # split) and the split into dx and daux (2 B S T F multiply-adds, f32,
+    # priced with them). bytes: xs, aux, h, c, dh and the weights read
     # once; dx, daux and the weight gradients written once (f32).
     rec = 2 * rows * T * 2 * (F + H) * 4 * H
     grad = (2 * rows * T * 2 * (4 * H * H + (F + H + 1) * 4 * H + 4 * H * F)
@@ -820,13 +884,52 @@ def cond_bwd_case(label, B, S, T, F, H, dtype, gen):
                       + 2 * (F + H) * 4 * H)
               + 4 * (2 * 4 * H + B * T * F + rows * F
                      + 2 * (F + H + 1) * 4 * H))
-    return _bwd_case(
+    row = _bwd_case(
         f'blstm_fullfused_cond_bwd {label} B={B} S={S} T={T} F={F} H={H}',
         dtype, lambda: kb.blstm_fullfused_cond_bwd(*args),
         lambda: kb.blstm_fullfused_cond_bwd_plain(*args),
         ('dx', 'daux', 'dw_ih', 'dw_hh', 'db'),
-        bwd_bound(rec, grad, nbytes, dtype), library=library,
-        library_label=COND_LIBRARY)
+        bwd_bound(rec, grad, nbytes, dtype, split=dtype == BF16),
+        library=library, library_label=COND_LIBRARY,
+        tol=CLUSTER_TOL['blstm_fullfused_cond_bwd'] if dtype == BF16
+        else None)
+    row['design'] = DESIGNS['blstm_fullfused_cond_bwd'][row['dtype']]
+    if dtype == BF16:
+        out = kb._cond_bwd_buffers(xs, S, H)
+        row['parts_ms'] = _parts_ms(
+            lambda bits: kb._fullfused_cond_bwd_cluster(*args, parts=bits,
+                                                        out=out),
+            kb.COND_BWD_PARTS)
+        row['first_design_ms'] = cuda_ms(
+            lambda: kb._fullfused_cond_bwd_first(*args))
+        row['materialized_ms'], row['fullfused_ms'] = (
+            _cond_materialized_bwd_ms(args))
+        row['geometry'] = dataclasses.asdict(
+            kb._geometry('bwd', rows, F, H, xs.device))
+    return row
+
+
+def _cond_materialized_bwd_ms(args):
+    """The default model's route on the conditioned backward's work: the
+    clustered fully fused backward at B S rows over the materialized product
+    (made, with its forward's h and c, outside the timed call), then the
+    product's backward, dx and daux as autograd forms them in the storage
+    type; and that kernel alone."""
+    xs, aux, w_ih_t, w_hh_t, bias, _, _, dh = args
+    B, S, T, F = *aux.shape[:2], *xs.shape[1:]
+    x = _materialized(xs, aux)
+    h, c = kb.blstm_fullfused_fwd(x, w_ih_t, w_hh_t, bias, with_cell=True)
+    dh = dh.reshape(B * S, T, -1)
+
+    def kernel():
+        return kb.blstm_fullfused_bwd(x, w_ih_t, w_hh_t, bias, h, c, dh)[0]
+
+    def run():
+        dx = kernel().to(xs.dtype).view(B, S, T, F)
+        return (dx * aux[:, :, None]).sum(dim=1), (dx * xs[:, None]).sum(
+            dim=2)
+
+    return cuda_ms(run), cuda_ms(kernel)
 
 
 def bidi_bwd_case(label, B, T, H, dtype, gen):
@@ -1281,6 +1384,27 @@ def phase_training_switch(label, steps, per_step, **switches):
             'agreement': agree}
 
 
+def cond_summary(rows, serving, training):
+    """Logs the conditioned pair in bfloat16 at batch 16: each kernel's
+    numbers on a served request (forward) or a training step (backward)
+    beside its first design, the materialized route and the cuDNN
+    yardstick, and the times and peak memory of ``serve cond_fuse`` and
+    ``train cond_fuse``."""
+    keys = ('ms', 'bound_ms', 'first_design_ms', 'materialized_ms',
+            'fullfused_ms', 'library_ms', 'parts_ms')
+    out = {}
+    for name, tag in (('blstm_fullfused_cond_fwd', ' serve '),
+                      ('blstm_fullfused_cond_bwd', ' train ')):
+        row = next(r for r in rows[name]
+                   if tag in r['name'] and r['dtype'] == 'bfloat16')
+        out[name] = {k: row[k] for k in keys if k in row}
+    out['serve cond_fuse'] = {'ms': serving['ms'],
+                              'peak_mib': serving['peak_mib']}
+    out['train cond_fuse'] = {'step_ms': training['step_ms'],
+                              'peak_mib': training['peak_mib']}
+    log(f'cond_fuse (bf16, batch 16): {json.dumps(out)}')
+
+
 def kernels_line(rows, phase_launches):
     """Per kernel: the numbers of one served request (forward kernels) or
     one training step (backward kernels) at batch 16 in bfloat16 storage,
@@ -1299,6 +1423,9 @@ def kernels_line(rows, phase_launches):
         if all('first_design_ms' in r for r in path):
             extra['first_design_ms'] = sum(r['first_design_ms']
                                            for r in path)
+        for key in ('materialized_ms', 'fullfused_ms'):
+            if all(key in r for r in path):
+                extra[key] = sum(r[key] for r in path)
         if all('parts_ms' in r for r in path):
             extra['parts_ms'] = {part: sum(r['parts_ms'][part] for r in path)
                                  for part in path[0]['parts_ms']}
@@ -1371,6 +1498,7 @@ def main():
         log(f'-- {label} done at {time.perf_counter() - t0:.1f} s')
     log(json.dumps({'serving cond_fuse': serving_cond, 'training': training,
                     **switched}))
+    cond_summary(rows, serving_cond, switched['train cond_fuse'])
     print(json.dumps(kernels_line(rows, {
         'serve': serve_launches,
         'serve cond_fuse': serving_cond['launches'],

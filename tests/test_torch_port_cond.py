@@ -162,6 +162,62 @@ def test_bidi_core_path_matches_jax_vjp(kb, B, T):
                    {k: np.asarray(v) for k, v in ref_params.items()})
 
 
+@pytest.mark.parametrize('B,T', [(2, 5), (3, 7)])
+def test_cond_bwd_plain_rounds_dx_once_in_bf16(kb, monkeypatch, B, T):
+    """In bf16 storage the plain backward (the function the card holds the
+    bf16 kernel against) rounds dx and daux to bf16 once, after both
+    directions and all speakers are summed in float32, as
+    ``_ffc_layer_bwd`` rounds ``dxa + dxb`` (``jax.vjp`` of
+    ``blstm_layer_fullfused_cond`` in interpret mode, JAX's storage dtype
+    set to bf16). Inputs are bf16 values on both sides; the forward is the
+    port's, from the same inputs. Rounding each direction's share first
+    would move dx by a bf16 ulp of the value, more than the tolerance."""
+    monkeypatch.setattr(kb, 'STORAGE_DTYPE', jnp.bfloat16)
+    BF = torch.bfloat16
+    xs, aux, params, dout = _cond_inputs(B, T, seed=B * 100 + T)
+    xs_t, aux_t, dout_t = (torch.from_numpy(a).to(BF)
+                           for a in (xs, aux, dout))
+
+    def jbf(t):
+        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    _, vjp = jax.vjp(kb.blstm_layer_fullfused_cond, jp, jbf(xs_t),
+                     jbf(aux_t))
+    ref_params, ref_dx, ref_daux = vjp(jbf(dout_t))
+    assert ref_dx.dtype == ref_daux.dtype == jnp.bfloat16
+
+    w_ih_t = _stack(params, 'weight_ih_l0').transpose(1, 2).to(BF)
+    w_hh_t = _stack(params, 'weight_hh_l0').transpose(1, 2).to(BF)
+    bias = _stack(params, 'bias_ih_l0') + _stack(params, 'bias_hh_l0')
+    args = (xs_t, aux_t, w_ih_t.contiguous(), w_hh_t.contiguous(), bias)
+    h, c = port.blstm_fullfused_cond_fwd_plain(*args, with_cell=True)
+    dx, daux, dw_ih_t, dw_hh_t, db = port.blstm_fullfused_cond_bwd_plain(
+        *args, h, c, dout_t)
+    for got in (dx, daux):
+        assert got.dtype == F32 and torch.equal(got, got.to(BF).float())
+    ref_dx = np.asarray(ref_dx.astype(jnp.float32))
+    _close(dx, ref_dx, GRAD_ATOL)
+    _close(daux, np.asarray(ref_daux.astype(jnp.float32)), GRAD_ATOL)
+    got_params = {}
+    for d, suffix in enumerate(('', '_reverse')):
+        got_params['weight_ih_l0' + suffix] = dw_ih_t[d].T
+        got_params['weight_hh_l0' + suffix] = dw_hh_t[d].T
+        got_params['bias_ih_l0' + suffix] = db[d]
+        got_params['bias_hh_l0' + suffix] = db[d]
+    _compare_grads(got_params,
+                   {k: np.asarray(v) for k, v in ref_params.items()})
+
+    # the check can fail: each direction's share rounded first
+    fold = lambda t: t.reshape(B * S, *t.shape[2:])    # noqa: E731
+    dgates = port._fullfused_bwd_sums(
+        port._conditioned(xs_t, aux_t), *args[2:], fold(h), fold(c),
+        fold(dout_t))[0]
+    each = port._dx_each_rounded(dgates, w_ih_t, BF).view(B, S, T, F)
+    dx_each = (each * aux_t.float()[:, :, None]).sum(dim=1).to(BF).float()
+    assert np.abs(dx_each.numpy() - ref_dx).max() > GRAD_ATOL
+
+
 def test_gradients_stay_float32_in_bf16_storage():
     """With bf16 storage the two new Functions take float32 master weights
     and return float32 weight gradients; dx and daux come back in their

@@ -1,14 +1,16 @@
 """The port's ten CUDA kernels against their plain versions, on the card.
 
-The fully fused pair's and the bidi pair's bfloat16 routes run the
-clustered Hopper kernels (``csrc/blstm_cluster_*.cuh``, the bidi pair in
-their gate-input form); their tests below stress the cluster split, the row
-tiles and waves, the x staging, the copy of xg and the walk, at the
-acceptance tolerances: forward 1.6e-2 abs (one bf16 ulp of c below 4,
-flipped by a sum order that differs from the plain version's), backward
-5e-3 of each output's peak (dx is rounded to bf16 per direction; the gate
-gradients enter the tensor-core products as a two-term bf16 split,
-relative error ~2^-16).
+The fully fused pair's, the bidi pair's and the conditioned pair's bfloat16
+routes run the clustered Hopper kernels (``csrc/blstm_cluster_*.cuh``, the
+bidi pair in their gate-input form, the conditioned pair in their
+conditioned form); their tests below stress the cluster split, the row
+tiles and waves, the x staging (and the conditioned product formed there),
+the copy of xg and the walk, at the acceptance tolerances: forward 1.6e-2
+abs (one bf16 ulp of c below 4, flipped by a sum order that differs from
+the plain version's), backward 5e-3 of each output's peak (dx is rounded to
+bf16 per direction, the conditioned dx and daux once; the gate gradients
+enter the tensor-core products as a two-term bf16 split, relative error
+~2^-16).
 
 Needs an NVIDIA card with the CUDA toolkit; skips elsewhere. This file
 imports no JAX, so it also runs where JAX is missing, without the suite's
@@ -455,6 +457,107 @@ def test_cluster_bidi_capacity_is_that_of_the_kernel_that_runs(gen, kind):
         held = kb._cluster_slots(kind, device, geo.cluster, geo.row_tile,
                                  geo.chunk, geo.threads, geo.shared,
                                  route='bidi')
+        assert held is not None and held * geo.cluster <= sms
+        assert geo.clusters_per_wave == min(held, geo.clusters)
+        if rows <= 128:
+            assert geo.waves == 1
+
+
+# The conditioned pair's bf16 route (the conditioned form of
+# csrc/blstm_cluster_*.cuh), (B, S, T, F, H): one row at H 16 (a cluster of
+# 4); S 3 with H 37 (CTAs that own no unit) at 9 rows; S 8 at 16 rows and at
+# birnn0's 128 (T 316); S 3 at 15 rows (8-row tiles that straddle speaker
+# groups); S 1 at H 128; 300 rows at H 512 (16-CTA clusters, more than one
+# wave, F 2048 staged beside its aux rows); 2048 rows at H 300 (the
+# flagship's batch 256, more than one wave).
+COND_CLUSTER_CASES = [(1, 1, 1, 12, 16), (3, 3, 2, 513, 37),
+                      (2, 8, 316, 513, 300), (16, 8, 316, 513, 300),
+                      (5, 3, 9, 40, 300), (13, 1, 23, 12, 128),
+                      (100, 3, 9, 2048, 512), (256, 8, 2, 513, 300)]
+
+
+def _cond_cluster_inputs(gen, B, S, T, F, H):
+    return _cond_inputs(gen, torch.bfloat16, B, S, T, F, H)
+
+
+@pytest.mark.parametrize('B,S,T,F,H', COND_CLUSTER_CASES)
+def test_cluster_cond_fwd_matches_plain(gen, B, S, T, F, H):
+    args = _cond_cluster_inputs(gen, B, S, T, F, H)
+    before = kb.blstm_fullfused_cond_fwd.launches
+    got = kb.blstm_fullfused_cond_fwd(*args, with_cell=True)
+    assert kb.blstm_fullfused_cond_fwd.launches == before + 1
+    want = kb.blstm_fullfused_cond_fwd_plain(*args, with_cell=True)
+    for g, w in zip(got, want):
+        assert g.shape == (B, S, T, 2 * H) and g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(),
+                                   atol=CLUSTER_FWD_ATOL, rtol=0)
+    h_only, c_none = kb.blstm_fullfused_cond_fwd(*args)
+    assert c_none is None
+    torch.testing.assert_close(h_only, got[0], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize('B,S,T,F,H', COND_CLUSTER_CASES)
+def test_cluster_cond_bwd_matches_plain_and_repeats(gen, B, S, T, F, H):
+    """dx, daux and the weight gradients against the plain version (dx and
+    daux rounded to bf16 once, after the directions and speakers are
+    summed); two launches give the same bits."""
+    args = _cond_cluster_inputs(gen, B, S, T, F, H)
+    h, c = kb.blstm_fullfused_cond_fwd(*args, with_cell=True)
+    dh = torch.randn(B, S, T, 2 * H, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    before = kb.blstm_fullfused_cond_bwd.launches
+    got = kb.blstm_fullfused_cond_bwd(*args, h, c, dh)
+    again = kb.blstm_fullfused_cond_bwd(*args, h, c, dh)
+    assert kb.blstm_fullfused_cond_bwd.launches == before + 2
+    shapes = [(B, T, F), (B, S, F), (2, F, 4 * H), (2, H, 4 * H), (2, 4 * H)]
+    for g, a, shape in zip(got, again, shapes):
+        assert g.shape == shape and g.dtype == torch.float32
+        assert torch.equal(g, a)
+    want = kb.blstm_fullfused_cond_bwd_plain(*args, h, c, dh)
+    assert _rel_err(got, want) <= CLUSTER_BWD_RTOL
+
+
+def test_cluster_cond_strided_xs_reads_in_place(gen):
+    """The conditioned pair's bf16 route reads xs and dh with any batch and
+    time strides (slices of wider tensors), giving the bits of contiguous
+    inputs."""
+    B, S, T, F, H = 5, 3, 11, 37, 37
+    xs, aux, w_ih_t, w_hh_t, bias = _cond_cluster_inputs(gen, B, S, T, F, H)
+    wide = torch.zeros(B, T + 1, F + 5, device='cuda', dtype=torch.bfloat16)
+    wide[:, 1:, 3:F + 3] = xs
+    xv = wide[:, 1:, 3:F + 3]
+    got = kb.blstm_fullfused_cond_fwd(xv, aux, w_ih_t, w_hh_t, bias,
+                                      with_cell=True)
+    want = kb.blstm_fullfused_cond_fwd(xs, aux, w_ih_t, w_hh_t, bias,
+                                       with_cell=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    h, c = want
+    wide_dh = torch.randn(B, S, T + 2, 3 * H, generator=gen,
+                          device='cuda').to(torch.bfloat16)
+    dh = wide_dh[:, :, 1:T + 1, :2 * H]
+    got = kb.blstm_fullfused_cond_bwd(xv, aux, w_ih_t, w_hh_t, bias, h, c, dh)
+    want = kb.blstm_fullfused_cond_bwd(xs, aux, w_ih_t, w_hh_t, bias, h, c,
+                                       dh.contiguous())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_cluster_cond_capacity_is_that_of_the_kernel_that_runs(gen):
+    """The conditioned forward's geometry asks
+    cudaOccupancyMaxActiveClusters about the conditioned instance, at the
+    row tile, chunk, threads and shared bytes it picks (its aux rows
+    included): at birnn0's 128 rows of a request of batch 16 it fits the
+    card in one wave, at 2048 rows every wave fits. The backward's walk is
+    the fully fused one at the same rows."""
+    device = torch.device('cuda', torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for rows in (16, 128, 2048):
+        geo = kb._geometry('fwd_cond', rows, 513, 300, device, 'cond')
+        assert geo.kind == 'fwd_cond'
+        held = kb._cluster_slots('fwd_cond', device, geo.cluster,
+                                 geo.row_tile, geo.chunk, geo.threads,
+                                 geo.shared, route='cond')
         assert held is not None and held * geo.cluster <= sms
         assert geo.clusters_per_wave == min(held, geo.clusters)
         if rows <= 128:

@@ -1,7 +1,7 @@
 """The launch geometry and weight packing of the clustered kernels, the bf16
-route of the fully fused pair and of the bidi pair (``kernels/blstm.py``
-``cluster_geometry``, ``_pack_fwd``, ``_pack_walk``, ``_xg_columns``): pure
-Python, no card, no JAX.
+route of the fully fused pair, of the conditioned pair and of the bidi pair
+(``kernels/blstm.py`` ``cluster_geometry``, ``_pack_fwd``, ``_pack_walk``,
+``_xg_columns``): pure Python, no card, no JAX.
 
 The CUDA kernels (``csrc/blstm_cluster_*.cuh``) trust what these give them:
 that every hidden unit has exactly one owning CTA, that every row lies in a
@@ -10,6 +10,7 @@ each weight where mma.sync's register layout expects it, and that the
 gate-input forward copies each column of xg into the gate row that reads it.
 """
 
+import dataclasses
 import itertools
 
 import pytest
@@ -50,12 +51,13 @@ def _check(geo, rows, F, H):
     assert geo.waves * geo.clusters_per_wave >= geo.clusters
     assert geo.shared <= 232448 and geo.threads % 32 == 0
     KH, KF, MT = kb._ceil_to(H, 16), kb._ceil_to(F, 16), U // 4
-    if geo.kind == 'fwd':
+    if geo.kind in ('fwd', 'fwd_cond'):
         assert geo.threads == 2 * MT * 32 <= 640
         assert geo.chunk in (1, 2, 4) and geo.chunk * geo.row_tile <= 32
         assert geo.k_block % 16 == 0 and min(KF, 256) <= geo.k_block <= KF
+        KA = KF if geo.kind == 'fwd_cond' else 0
         assert geo.shared == kb._fwd_shared(MT, KH, geo.row_tile, geo.chunk,
-                                            geo.k_block)
+                                            geo.k_block, KA)
     elif geo.kind == 'fwd_xg':
         assert geo.threads == 2 * MT * 32 <= 640
         assert geo.chunk in (1, 2, 4, 8) and geo.chunk * geo.row_tile <= 64
@@ -69,7 +71,7 @@ def _check(geo, rows, F, H):
                                              geo.row_tile)
 
 
-@pytest.mark.parametrize('kind', ['fwd', 'bwd', 'fwd_xg'])
+@pytest.mark.parametrize('kind', ['fwd', 'bwd', 'fwd_xg', 'fwd_cond'])
 @pytest.mark.parametrize('slots', [None, _h100_slots],
                          ids=['sms-over-cluster', 'h100-capacity'])
 @pytest.mark.parametrize('H', [16, 37, 300, 512])
@@ -84,7 +86,8 @@ def test_geometry_invariants(kind, slots, H):
 
 
 @pytest.mark.parametrize('kind,largest_of_8', [('fwd', 320), ('bwd', 416),
-                                               ('fwd_xg', 320)])
+                                               ('fwd_xg', 320),
+                                               ('fwd_cond', 320)])
 def test_cluster_size_follows_hidden_size(kind, largest_of_8):
     """8 CTAs (portable) up to the largest H whose share fits one CTA: 10
     m-tiles of four units in the forward, the walk's shared memory in the
@@ -299,3 +302,80 @@ def test_gate_wgrad_splits():
     assert [kb.gate_wgrad_splits(b * 316, 300) for b in (16, 128, 256)] == [
         2, 2, 2]
     assert kb.gate_wgrad_splits(1000, 300) == 1
+
+
+@pytest.mark.parametrize('slots', [None, _h100_slots],
+                         ids=['sms-over-cluster', 'h100-capacity'])
+@pytest.mark.parametrize('F', [12, 513, 2048])
+def test_conditioned_forward_fits_at_every_hidden_size(slots, F):
+    """The conditioned forward's plan at B S rows (1, birnn0's 128 of a
+    request of batch 16, 2048 of batch 256) fits Hopper's 232,448 bytes a
+    block at every H that ``cluster_geometry`` accepts: the projection
+    form's shared bytes and the tile's aux rows, KF bf16 values each
+    (``csrc/blstm_cluster_fwd.cuh`` ``fwd_shared_bytes``)."""
+    KF = kb._ceil_to(F, 16)
+    for H in range(1, kb._MAX_HIDDEN + 1):
+        for rows in (1, 128, 2048):
+            geo = kb.cluster_geometry('fwd_cond', rows, F, H, slots=slots)
+            _check(geo, rows, F, H)
+            MT, KH = geo.units // 4, kb._ceil_to(H, 16)
+            assert geo.shared == (kb._fwd_shared(
+                MT, KH, geo.row_tile, geo.chunk, geo.k_block)
+                + 2 * geo.row_tile * KF) <= 232448
+
+
+@pytest.mark.parametrize('H', [16, 37, 128, 300, 320, 512])
+def test_conditioned_plan_is_the_projection_plan_where_aux_fits(H):
+    """Where the tile's aux rows fit beside the projection form's plan at
+    every row tile, the conditioned forward takes that plan (cluster, units,
+    row tile, chunk, x block, waves) and only its shared bytes grow, by
+    2 BT KF; with no aux term the plan is the projection form's. At
+    birnn0's 128 rows of a request of batch 16 (F 513, H 300) on an H100 it
+    is the fully fused forward's: 24-row tiles, one step a chunk, all of F
+    staged at once, 12 clusters in one wave; at 2048 rows it keeps all of F
+    staged at once on 24-row tiles, where the fully fused forward takes
+    32."""
+    for rows, F in itertools.product(ROWS, WIDTHS):
+        KF = kb._ceil_to(F, 16)
+        proj = kb.cluster_geometry('fwd', rows, F, H, slots=_h100_slots)
+        cond = kb.cluster_geometry('fwd_cond', rows, F, H, slots=_h100_slots)
+        MT, KH = proj.units // 4, kb._ceil_to(H, 16)
+        plans = [kb._fwd_plan(MT, KH, KF, BT) for BT in (8, 16, 24, 32)]
+        for BT, plan in zip((8, 16, 24, 32), plans):
+            assert kb._fwd_plan(MT, KH, KF, BT, 0) == plan
+        fits = all(plan is None or plan[1] + 2 * BT * KF <= 232448
+                   for BT, plan in zip((8, 16, 24, 32), plans))
+        if fits:
+            assert cond == dataclasses.replace(
+                proj, kind='fwd_cond',
+                shared=proj.shared + 2 * proj.row_tile * KF)
+    geo = kb.cluster_geometry('fwd_cond', 128, 513, 300, slots=_h100_slots)
+    assert (geo.cluster, geo.units, geo.row_tile, geo.chunk, geo.k_block,
+            geo.clusters, geo.waves) == (8, 40, 24, 1, 528, 12, 1)
+    assert geo.shared == kb.cluster_geometry(
+        'fwd', 128, 513, 300, slots=_h100_slots).shared + 2 * 24 * 528
+    # at 2048 rows (batch 256) a 32-row tile holds its aux rows only with F
+    # staged in two blocks; no plan fits one wave, so the largest tile that
+    # stages all of F at once is taken
+    geo = kb.cluster_geometry('fwd_cond', 2048, 513, 300, slots=_h100_slots)
+    assert (geo.row_tile, geo.chunk, geo.k_block, geo.clusters,
+            geo.waves) == (24, 1, 528, 172, 12)
+    assert kb._fwd_plan(10, 304, 528, 32, 528)[3] == 272
+
+
+@pytest.mark.parametrize('B,S', [(1, 1), (5, 3), (16, 8), (3, 1)])
+def test_conditioned_rows_map_to_xs_row_and_aux_row(B, S):
+    """Layer row r of the conditioned pair is xs row r // S times aux row r
+    of aux (B, S, F) seen as (B S, F), every row once: the order
+    (row = b S + s) in which the kernels divide a row by S, and which the
+    plain version (``_conditioned``) materializes."""
+    T, F = 3, 5
+    xs = torch.arange(B * T * F, dtype=torch.float64).reshape(B, T, F) + 1
+    aux = torch.arange(B * S * F, dtype=torch.float64).reshape(B, S, F) + 7
+    cond = kb._conditioned(xs, aux)
+    assert cond.shape == (B * S, T, F)
+    rows = aux.reshape(B * S, F)
+    for r in range(B * S):
+        torch.testing.assert_close(cond[r], xs[r // S] * rows[r][None],
+                                   atol=0, rtol=0)
+    assert sorted({r // S for r in range(B * S)}) == list(range(B))

@@ -66,6 +66,16 @@ _SIGNATURES = {
                                        _P, _P, _P, _P, _LL, _LL, _P, _LL, _LL,
                                        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                        _P],
+    'tssep_blstm_fullfused_cond_fwd_cluster': [_P, _LL, _LL, _I, _P, _I, _P,
+                                               _P, _P, _P, _P, _LL, _LL, _I,
+                                               _I, _I, _I, _I, _I, _I, _I, _I,
+                                               _P],
+    'tssep_cond_fwd_slots': [_I, _I, _I, _I, _I, _P],
+    'tssep_blstm_fullfused_cond_bwd_cluster': [_P, _LL, _LL, _I, _P, _I, _P,
+                                               _P, _P, _P, _P, _P, _LL, _LL,
+                                               _P, _LL, _LL, _P, _P, _P, _P,
+                                               _P, _I, _I, _I, _I, _I, _I,
+                                               _I, _I, _I, _I, _P],
     'tssep_blstm_fullfused_spill_fwd': [_P, _LL, _LL, _I, _P, _P, _P, _P, _P,
                                         _LL, _LL, _I, _I, _I, _I, _I, _I, _P],
     'tssep_blstm_fullfused_spill_bwd': [_P, _LL, _LL, _I, _P, _P, _P, _P, _P,

@@ -34,17 +34,19 @@ inputs ``xg`` (B, T, 4H) and its backward, dxg and dW_hh; ``reverse=True``
 walks t = T-1 .. 0.
 The CUDA sources, with what bounds each kernel on an H100, are in ``csrc/``.
 
-The fully fused pair and the bidi pair have two routes by storage dtype.
-bfloat16, the one the flagship serves and trains in, runs the Hopper design
-of ``csrc/blstm_cluster_fwd.cuh`` and ``csrc/blstm_cluster_bwd.cuh``: W_hh
-split over a thread-block cluster and resident in shared memory,
-tensor-core products, the input projection (or the copy of the gate inputs
-xg) off the serial chain; the bidi pair runs its gate-input form. Its launch
+The fully fused pair, the bidi pair and the conditioned pair have two
+routes by storage dtype. bfloat16, the one the flagship serves and trains
+in, runs the Hopper design of ``csrc/blstm_cluster_fwd.cuh`` and
+``csrc/blstm_cluster_bwd.cuh``: W_hh split over a thread-block cluster and
+resident in shared memory, tensor-core products, the input projection (or
+the copy of the gate inputs xg) off the serial chain; the bidi pair runs its
+gate-input form, the conditioned pair its conditioned form, which forms the
+rows ``xs[b] * aux[b, s]`` where the projection form stages x. Its launch
 geometry comes from :func:`cluster_geometry`, and the weights enter it
 packed per CTA in the tensor cores' fragment order (:func:`_pack_fwd`,
 :func:`_pack_walk`). float32, the tests' and checks' mode, keeps the first
 design (``csrc/blstm_common.cuh``, ``csrc/blstm_bwd_common.cuh``), which
-the other six kernels share.
+the other four kernels share.
 
 Each bidirectional wrapper takes one layer's two directions stacked on a
 leading axis of 2 (forward, reverse). Sequences are (B, T, 2H), the forward direction in
@@ -397,10 +399,12 @@ def _fwd_xg_shared(MT, KH, BT, TC):
             + 2 * TC * MT * (BT // 8) * 512 + 16)
 
 
-def _fwd_shared(MT, KH, BT, TC, KX):
+def _fwd_shared(MT, KH, BT, TC, KX, KA=0):
     """Shared bytes of a forward CTA in the projection form: the gate-input
-    form's and the staged x rows."""
-    return _fwd_xg_shared(MT, KH, BT, TC) + 2 * TC * BT * (KX + 8)
+    form's and the staged x rows; in the conditioned form (KA = KF) also
+    the tile's aux rows, KA values each."""
+    return (_fwd_xg_shared(MT, KH, BT, TC) + 2 * TC * BT * (KX + 8)
+            + 2 * BT * KA)
 
 
 def _walk_shared(MT, KH, U, nact, BT):
@@ -440,16 +444,20 @@ class ClusterGeometry:
         return -(-self.clusters // self.clusters_per_wave)
 
 
-#: The kinds of :func:`cluster_geometry`: the forward in its projection and
-#: gate-input forms, and the backward's walk (the same in both forms).
-GEOMETRY_KINDS = ('fwd', 'fwd_xg', 'bwd')
+#: The kinds of :func:`cluster_geometry`: the forward in its projection,
+#: conditioned and gate-input forms, and the backward's walk (the same in
+#: every form).
+GEOMETRY_KINDS = ('fwd', 'fwd_cond', 'fwd_xg', 'bwd')
 
 
 def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
     """The launch geometry of ``blstm_fullfused_fwd`` (``kind`` 'fwd'), of
-    ``blstm_bidi_fwd`` ('fwd_xg', the gate-input form) or of the walk of
-    ``blstm_fullfused_bwd`` and ``blstm_bidi_bwd`` ('bwd') in bf16 storage,
-    for ``rows`` rows, input width F (read by 'fwd' only) and hidden size H:
+    ``blstm_fullfused_cond_fwd`` ('fwd_cond', the conditioned form: rows
+    are the B S conditioned rows), of ``blstm_bidi_fwd`` ('fwd_xg', the
+    gate-input form) or of the walk of ``blstm_fullfused_bwd``,
+    ``blstm_fullfused_cond_bwd`` and ``blstm_bidi_bwd`` ('bwd') in bf16
+    storage, for ``rows`` rows, input width F (read by the projection
+    forms only) and hidden size H:
     a pure function of its arguments. ``slots(cluster, row_tile, chunk,
     threads, shared)`` gives the clusters of the kernel that such a plan
     launches that the card holds at once, or None (an H100 SXM holds 15
@@ -463,10 +471,12 @@ def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
     power of two). Units per CTA are a multiple of 4, so that
     each m-tile holds the four gates of four units. The row tile is the
     smallest of 8, 16, 24, 32 that puts every cluster in one wave, else the
-    largest that fits. The forward then takes the longest chunk of steps
-    that fits in 232,448 bytes: the projection form 1, 2 or 4 steps of at
+    largest that fits with all of F staged at once (else the largest that
+    fits). The forward then takes the longest chunk of steps
+    that fits in 232,448 bytes: the projection forms 1, 2 or 4 steps of at
     most 32 columns and the widest x block (at least 256 columns, or all of
-    F), the gate-input form 1, 2, 4 or 8 steps of at most 64 columns.
+    F), beside the tile's aux rows in the conditioned form; the gate-input
+    form 1, 2, 4 or 8 steps of at most 64 columns.
     Raises ValueError where H exceeds ``_MAX_HIDDEN`` or nothing fits."""
     if kind not in GEOMETRY_KINDS:
         raise ValueError(f'kind must be one of {GEOMETRY_KINDS}, got {kind!r}')
@@ -484,8 +494,9 @@ def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
         cluster = 1 << (nact - 1).bit_length()
         plans = []
         for BT in (8, 16, 24, 32):
-            if kind == 'fwd':
-                plan = _fwd_plan(MT, KH, KF, BT)
+            if kind in ('fwd', 'fwd_cond'):
+                plan = _fwd_plan(MT, KH, KF, BT,
+                                 KF if kind == 'fwd_cond' else 0)
             elif kind == 'fwd_xg':
                 plan = _fwd_xg_plan(MT, KH, BT)
             else:
@@ -498,8 +509,12 @@ def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
         if not plans:
             continue
         one_wave = [p for p in plans if 2 * -(-rows // p[0]) <= p[2]]
+        # x staged in blocks costs each step a barrier pair and a short
+        # product per block, more than a smaller tile's extra waves cost:
+        # chip_smoke.py times the conditioned forward both ways at 2048 rows
+        whole = [p for p in plans if p[1][3] in (0, KF)] or plans
         BT, (threads, shared, TC, KX), per_wave = (
-            one_wave[0] if one_wave else plans[-1])
+            one_wave[0] if one_wave else whole[-1])
         tiles = -(-rows // BT)
         return ClusterGeometry(
             kind=kind, cluster=cluster, units=U, active=nact, row_tile=BT,
@@ -510,9 +525,10 @@ def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
                      f'with H {H}, F {F} in shared memory')
 
 
-def _fwd_plan(MT, KH, KF, BT):
+def _fwd_plan(MT, KH, KF, BT, KA=0):
     """(threads, shared, chunk, x block) of the forward at row tile BT, or
-    None where nothing fits with x staged at least 256 columns at a time."""
+    None where nothing fits with x staged at least 256 columns at a time;
+    KA as for :func:`_fwd_shared`."""
     for TC in (4, 2, 1):
         if TC * BT > 32:
             continue
@@ -520,7 +536,7 @@ def _fwd_plan(MT, KH, KF, BT):
             KX = _ceil_to(-(-KF // nk), 16)
             if KX < min(KF, 256):
                 break
-            shared = _fwd_shared(MT, KH, BT, TC, KX)
+            shared = _fwd_shared(MT, KH, BT, TC, KX, KA)
             if shared <= _MAX_SHARED_BYTES:
                 return 2 * MT * 32, shared, TC, KX
     return None
@@ -668,9 +684,10 @@ def _sms(device):
 
 
 #: The capacity query of the kernel that each (geometry kind, route)
-#: launches: the forward's projection or gate-input form, the walk with dh in
-#: bf16 (fully fused) or f32 (bidi).
+#: launches: the forward's projection, conditioned or gate-input form, the
+#: walk with dh in bf16 (fully fused, conditioned) or f32 (bidi).
 _SLOT_QUERIES = {('fwd', 'fullfused'): 'tssep_cluster_fwd_slots',
+                 ('fwd_cond', 'cond'): 'tssep_cond_fwd_slots',
                  ('fwd_xg', 'bidi'): 'tssep_bidi_fwd_slots',
                  ('bwd', 'fullfused'): 'tssep_cluster_walk_slots',
                  ('bwd', 'bidi'): 'tssep_bidi_walk_slots'}
@@ -697,7 +714,7 @@ def _cluster_slots(kind, device, cluster, row_tile, chunk, threads, shared,
 @functools.lru_cache(maxsize=64)
 def _geometry(kind, rows, F, H, device, route='fullfused'):
     """:func:`cluster_geometry` for a launch on ``device`` of the kernel
-    that ``kind`` and ``route`` ('fullfused' or 'bidi') name."""
+    that ``kind`` and ``route`` ('fullfused', 'cond' or 'bidi') name."""
     return cluster_geometry(
         kind, rows, F, H, _sms(device),
         slots=functools.partial(_cluster_slots, kind, device, route=route))
@@ -925,11 +942,30 @@ def blstm_fullfused_cond_fwd(xs, aux, w_ih_t, w_hh_t, bias, *,
     all in the storage dtype; bias: (2, 4H) float32. Returns ``(h, c)``,
     each (B, S, T, 2H) in the storage dtype; ``c`` is None unless
     ``with_cell``.
+
+    On a CUDA device, bfloat16 storage runs the conditioned form of the
+    clustered Hopper kernel (``csrc/blstm_cluster_fwd.cuh``, geometry from
+    :func:`cluster_geometry` kind 'fwd_cond' at B S rows); float32 storage,
+    the tests' and checks' mode, runs the first design
+    (``csrc/blstm_common.cuh``).
     """
     B, S, T, F, H = _check_cond_inputs(xs, aux, w_ih_t, w_hh_t, bias)
     if xs.device.type == 'cpu':
         return blstm_fullfused_cond_fwd_plain(xs, aux, w_ih_t, w_hh_t, bias,
                                               with_cell=with_cell)
+    route = (_fullfused_cond_fwd_cluster if xs.dtype == torch.bfloat16
+             else _fullfused_cond_fwd_first)
+    out = route(xs, aux, w_ih_t, w_hh_t, bias, with_cell)
+    blstm_fullfused_cond_fwd.launches += 1
+    return out
+
+
+def _fullfused_cond_fwd_first(xs, aux, w_ih_t, w_hh_t, bias, with_cell):
+    """The first design of :func:`blstm_fullfused_cond_fwd` on a CUDA device
+    (``csrc/blstm_common.cuh``), in either storage dtype: the route of
+    float32."""
+    B, T, F = xs.shape
+    S, H = aux.shape[1], w_hh_t.shape[1]
     bt = _launch_tile(xs, H, 2 * H + F, (aux, w_ih_t, w_hh_t, bias),
                       rows=B * S)
     h = torch.empty(B * S, T, 2 * H, dtype=xs.dtype, device=xs.device)
@@ -942,7 +978,31 @@ def blstm_fullfused_cond_fwd(xs, aux, w_ih_t, w_hh_t, bias, *,
             h.stride(1), B, T, H, int(xs.dtype == torch.bfloat16), bt,
             torch.cuda.current_stream(xs.device).cuda_stream)
     _raise_on(err, 'blstm_fullfused_cond_fwd')
-    blstm_fullfused_cond_fwd.launches += 1
+    return tuple(None if t is None else t.view(B, S, T, 2 * H) for t in (h, c))
+
+
+def _fullfused_cond_fwd_cluster(xs, aux, w_ih_t, w_hh_t, bias, with_cell,
+                                geo=None):
+    """The bf16 route of :func:`blstm_fullfused_cond_fwd` on a CUDA device;
+    ``geo`` replaces the launch geometry of :func:`cluster_geometry`, so
+    that another plan can be timed on the same work."""
+    B, T, F = xs.shape
+    S, H = aux.shape[1], w_hh_t.shape[1]
+    _check_launch(xs, H, (aux, w_ih_t, w_hh_t, bias))
+    if geo is None:
+        geo = _geometry('fwd_cond', B * S, F, H, xs.device, 'cond')
+    wih_p, whh_p, bias_p = _pack_fwd(w_ih_t, w_hh_t, bias, geo, H)
+    h = torch.empty(B * S, T, 2 * H, dtype=xs.dtype, device=xs.device)
+    c = torch.empty_like(h) if with_cell else None
+    with torch.cuda.device(xs.device):
+        err = _build.library().tssep_blstm_fullfused_cond_fwd_cluster(
+            xs.data_ptr(), xs.stride(0), xs.stride(1), F, aux.data_ptr(), S,
+            wih_p.data_ptr(), whh_p.data_ptr(), bias_p.data_ptr(),
+            h.data_ptr(), c.data_ptr() if with_cell else None, h.stride(0),
+            h.stride(1), B, T, H, geo.cluster, geo.units, geo.active,
+            geo.row_tile, geo.chunk, geo.k_block,
+            torch.cuda.current_stream(xs.device).cuda_stream)
+    _raise_on(err, 'blstm_fullfused_cond_fwd')
     return tuple(None if t is None else t.view(B, S, T, 2 * H) for t in (h, c))
 
 
@@ -1147,6 +1207,14 @@ def blstm_fullfused_cond_bwd(xs, aux, w_ih_t, w_hh_t, bias, h, c, dh):
     rounded to the storage dtype; daux (B, S, F), rounded to the storage
     dtype; dw_ih_t (2, F, 4H); dw_hh_t (2, H, 4H); db (2, 4H), the gradient
     of each of the two torch biases.
+
+    On a CUDA device, bfloat16 storage runs the conditioned form of the
+    Hopper design (``csrc/blstm_cluster_bwd.cuh``: the gate pre-activations
+    over the conditioned rows as one tensor-core product, the clustered walk
+    of the fully fused backward at B S rows, tensor-core weight sums, dcond
+    as one tensor-core product over both directions, then its split into dx
+    and daux); float32 storage, the tests' and checks' mode, runs the first
+    design (``csrc/blstm_bwd_common.cuh``).
     """
     B, S, T, F, H = _check_cond_inputs(xs, aux, w_ih_t, w_hh_t, bias)
     for name, t in (('h', h), ('c', c), ('dh', dh)):
@@ -1154,6 +1222,19 @@ def blstm_fullfused_cond_bwd(xs, aux, w_ih_t, w_hh_t, bias, h, c, dh):
     if xs.device.type == 'cpu':
         return blstm_fullfused_cond_bwd_plain(xs, aux, w_ih_t, w_hh_t, bias,
                                               h, c, dh)
+    route = (_fullfused_cond_bwd_cluster if xs.dtype == torch.bfloat16
+             else _fullfused_cond_bwd_first)
+    out = route(xs, aux, w_ih_t, w_hh_t, bias, h, c, dh)
+    blstm_fullfused_cond_bwd.launches += 1
+    return out
+
+
+def _fullfused_cond_bwd_first(xs, aux, w_ih_t, w_hh_t, bias, h, c, dh):
+    """The first design of :func:`blstm_fullfused_cond_bwd` on a CUDA device
+    (``csrc/blstm_bwd_common.cuh``), in either storage dtype: the route of
+    float32."""
+    B, T, F = xs.shape
+    S, H = aux.shape[1], w_hh_t.shape[1]
     bt = _launch_tile(xs, H, 7 * H + F, (aux, w_ih_t, w_hh_t, bias, h, c),
                       rows=B * S)
     # the speakers folded into the rows (views of the contiguous h and c)
@@ -1179,7 +1260,59 @@ def blstm_fullfused_cond_bwd(xs, aux, w_ih_t, w_hh_t, bias, h, c, dh):
             int(xs.dtype == torch.bfloat16), bt,
             torch.cuda.current_stream(xs.device).cuda_stream)
     _raise_on(err, 'blstm_fullfused_cond_bwd')
-    blstm_fullfused_cond_bwd.launches += 1
+    return dx, daux, dw[:, :F], dw[:, F:F + H], dw[:, F + H]
+
+
+#: The launches of the bf16 conditioned backward, in order, by their
+#: ``parts`` bit.
+COND_BWD_PARTS = {'gates': 1, 'walk': 2, 'wgrad': 4, 'dcond': 8, 'split': 16}
+
+
+def _cond_bwd_buffers(xs, S, H):
+    """The bf16 conditioned backward's workspaces and outputs for xs
+    (B, T, F) and S speakers: ``(dg, dcond, dw, dx, daux)``, the f32 gate
+    gradients (2, B S, T, 4H), dcond (B S, T, F), which also holds the
+    weight sums' split partials, [dW_ih^T; dW_hh^T; db] (2, F + H + 1, 4H),
+    dx (B, T, F) and daux (B, S, F)."""
+    B, T, F = xs.shape
+    f32 = dict(dtype=torch.float32, device=xs.device)
+    return (torch.empty(2, B * S, T, 4 * H, **f32),
+            torch.empty(B * S, T, F, **f32),
+            torch.empty(2, F + H + 1, 4 * H, **f32),
+            torch.empty(B, T, F, **f32),
+            torch.empty(B, S, F, **f32))
+
+
+def _fullfused_cond_bwd_cluster(xs, aux, w_ih_t, w_hh_t, bias, h, c, dh,
+                                parts=31, out=None):
+    """The bf16 route of :func:`blstm_fullfused_cond_bwd` on a CUDA device;
+    ``parts`` picks its launches (:data:`COND_BWD_PARTS`) and ``out`` gives
+    the buffers of :func:`_cond_bwd_buffers` to reuse, so that each launch
+    can be timed alone."""
+    B, T, F = xs.shape
+    S, H = aux.shape[1], w_hh_t.shape[1]
+    _check_launch(xs, H, (aux, w_ih_t, w_hh_t, bias, h, c))
+    # the speakers folded into the rows (views of the contiguous h and c)
+    h, c, dh = (t.reshape(B * S, T, 2 * H) for t in (h, c, dh))
+    if dh.stride(-1) != 1:
+        raise ValueError('the last axis of dh must be contiguous')
+    geo = _geometry('bwd', B * S, F, H, xs.device)
+    wp = _pack_walk(w_hh_t, geo, H)
+    if out is None:
+        out = _cond_bwd_buffers(xs, S, H)
+    dg, dcond, dw, dx, daux = out
+    with torch.cuda.device(xs.device):
+        err = _build.library().tssep_blstm_fullfused_cond_bwd_cluster(
+            xs.data_ptr(), xs.stride(0), xs.stride(1), F, aux.data_ptr(), S,
+            w_ih_t.data_ptr(), w_hh_t.data_ptr(), bias.data_ptr(),
+            wp.data_ptr(), h.data_ptr(), c.data_ptr(), h.stride(0),
+            h.stride(1), dh.data_ptr(), dh.stride(0), dh.stride(1),
+            dg.data_ptr(), dcond.data_ptr(), dw.data_ptr(), dx.data_ptr(),
+            daux.data_ptr(), B, T, H, geo.cluster, geo.units, geo.active,
+            geo.row_tile, geo.threads,
+            wgrad_splits(B * S * T, F, H, _sms(xs.device)), parts,
+            torch.cuda.current_stream(xs.device).cuda_stream)
+    _raise_on(err, 'blstm_fullfused_cond_bwd')
     return dx, daux, dw[:, :F], dw[:, F:F + H], dw[:, F + H]
 
 

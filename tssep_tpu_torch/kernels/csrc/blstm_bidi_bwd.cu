@@ -75,6 +75,8 @@ extern "C" int tssep_blstm_bidi_bwd_cluster(
   r.H = H;
   r.rows = rows;
   r.divT = make_fastdiv((uint32_t)T);
+  r.aux = nullptr;
+  r.divS = make_fastdiv(1);
   int err = 0;
   if (parts & 1) {
     GatesOp<true> op;
@@ -112,7 +114,7 @@ extern "C" int tssep_blstm_bidi_bwd_cluster(
     if (err != 0) return err;
   }
   if (parts & 4) {
-    WgradOp op;
+    WgradOp<> op;
     op.rows = r;
     op.dg = static_cast<const float*>(dg);
     op.out = static_cast<float*>(dw);

@@ -57,6 +57,8 @@ extern "C" int tssep_blstm_bidi_fwd_cluster(const void* xg, long long xg_sb, lon
   a.whh = static_cast<const uint4*>(whh_p);
   a.bias = nullptr;
   a.cols = static_cast<const int*>(cols);
+  a.aux = nullptr;
+  a.divS = tssep::tc::make_fastdiv(1);
   a.h_out = static_cast<__nv_bfloat16*>(h_out);
   a.c_out = static_cast<__nv_bfloat16*>(c_out);
   a.o_sb = o_sb;

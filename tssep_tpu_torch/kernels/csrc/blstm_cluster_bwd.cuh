@@ -1,8 +1,16 @@
-// The Hopper design of the bidirectional LSTM backward (bf16 storage), in two
+// The Hopper design of the bidirectional LSTM backward (bf16 storage), in three
 // forms:
 // - projection: the fully fused backward. Replaces, with
 //   blstm_fullfused_bwd.cu, the TPU kernel `_ff_bwd_kernel`
 //   (tssep_tpu/kernels/blstm.py:861). Four launches on one stream (1-4).
+// - conditioned projection: the backward of the 'mul'-conditioned layer,
+//   whose row b is xs row b / S times aux row b (template parameter COND of
+//   the rows that steps 1 and 3 read: each conditioned value formed as the
+//   forward staged it, rounded to bf16 once). Replaces, with
+//   blstm_fullfused_cond_bwd.cu, the TPU kernel `_ffc_bwd_kernel` (:1707).
+//   Steps 1-3 as the projection form's over the B S rows; step 4 is dcond
+//   (DcondOp), which blstm_fullfused_cond_bwd.cu then splits into dx and
+//   daux.
 // - gate inputs: the backward of the walk from gate inputs xg. Replaces,
 //   with blstm_bidi_bwd.cu, the TPU kernel `_bi_bwd_kernel` (:424). Three
 //   launches (1-3): the gate product sums over h_prev alone (K = H) and adds
@@ -41,7 +49,10 @@
 // 4. dx: sum over the directions of round_bf16(dg_d W_ih,d), each
 //    direction's product rounded to bf16 and the two summed in f32, as the
 //    TPU kernel wrote dx per direction in the storage type; dg split as
-//    above.
+//    above. Conditioned form: dcond = dg_0 W_ih,0 + dg_1 W_ih,1 as one
+//    product with both directions in its K (8H), summed in f32 and not
+//    rounded, as `_ffc_layer_bwd` keeps both directions' dx in f32 and
+//    rounds once after the sum over the speakers.
 //
 // The walk's geometry (C, U, BT, threads) comes from `cluster_geometry` in
 // kernels/blstm.py (kind 'bwd', for both forms); `walk_shared_bytes` is its
@@ -75,13 +86,35 @@ namespace tc {
 constexpr int kGM = 128, kGN = 128, kGK = 32, kGS = kGK + 8;
 
 // Where row k = (b, t) of one direction's [x | h_prev] starts: x at `x`,
-// h_prev at `h`, or -1 where the row or its h_prev does not exist.
+// h_prev at `h`, or -1 where the row or its h_prev does not exist; in the
+// conditioned form aux row b at `a`.
 struct RowPtr {
-  long long x, h;
+  long long x, h, a;
 };
 
 template <int TERMS>
 using Elem = typename std::conditional<(TERMS > 1), float, __nv_bfloat16>::type;
+
+// A conditioned element as loaded, bf16 x and aux, kept apart in registers
+// until the element is stored to shared memory (`value`), so that the
+// product waits for neither load: the next block's loads stay in flight
+// behind the current block's products.
+struct BfPair {
+  __nv_bfloat16 x, a;
+};
+
+// An element as loaded, as it enters the tile: the conditioned pair's
+// product rounded to bf16 once (the product of two bf16 values is exact in
+// f32); anything else as it is.
+__device__ __forceinline__ float value(float v) { return v; }
+__device__ __forceinline__ __nv_bfloat16 value(__nv_bfloat16 v) { return v; }
+__device__ __forceinline__ __nv_bfloat16 value(BfPair p) {
+  unsigned short r;  // the exact product rounded to nearest once, as the forward's
+  asm("mul.rn.bf16 %0, %1, %2;\n"
+      : "=h"(r)
+      : "h"(__bfloat16_as_ushort(p.x)), "h"(__bfloat16_as_ushort(p.a)));
+  return __ushort_as_bfloat16(r);
+}
 
 // Element v of a tile into its term planes p[0], p[plane] (i: its index).
 template <int TERMS>
@@ -131,7 +164,7 @@ __global__ void __launch_bounds__(256, Op::MIN_BLOCKS) tc_gemm_kernel(const Op o
       if (tid < kGK) tab[((kb / kGK) & 1) * kGK + tid] = op.row_ptr(z, kb + tid);
     }
     __syncthreads();
-    Elem<PA> ra[16];
+    decltype(op.a(z, pass, 0LL, 0LL, RowPtr{})) ra[16];  // Elem<PA>, or pairs (value)
     Elem<PB> rb[16];
     auto load = [&](long long k0) {
       const RowPtr* t = TAB == 2 ? tab + ((k0 / kGK) & 1) * kGK : tab;
@@ -148,7 +181,7 @@ __global__ void __launch_bounds__(256, Op::MIN_BLOCKS) tc_gemm_kernel(const Op o
       for (int i = 0; i < 16; ++i) {
         const int ai = (a_r + i * A_DR) * kGS + a_c + i * A_DC;
         const int bi = (b_r + i * B_DR) * kGS + b_c + i * B_DC;
-        put<PA>(ra[i], As[0], ai, kGM * kGS);
+        put<PA>(value(ra[i]), As[0], ai, kGM * kGS);
         put<PB>(rb[i], Bs[0], bi, kGN * kGS);
       }
       if constexpr (TAB == 2) {  // the rows of the block after the next load
@@ -210,40 +243,69 @@ __device__ __forceinline__ __nv_bfloat16 bf16_zero() { return __float2bfloat16(0
 
 // The (B, T) rows of one direction's [x | h_prev | 1] (h_prev zero before
 // the walk's first step). In the gate-input form F is 0, x is xg and only
-// the pointer to a row's xg is read (GatesOp's epilogue).
-struct Rows {
+// the pointer to a row's xg is read (GatesOp's epilogue). With COND (the
+// conditioned form) x is xs, row b's x part is bf16(xs[b / S, t] * aux[b])
+// and aux is (B, F) contiguous; an element is then loaded as the pair
+// (x, aux), (h, 1) or (1, 1), whose product `value` forms.
+template <bool COND>
+struct RowsT {
+  using Loaded = typename std::conditional<COND, BfPair, __nv_bfloat16>::type;
   const __nv_bfloat16* x;
   long long x_sb, x_st;
   const __nv_bfloat16* h;
   long long s_sb, s_st;
+  const __nv_bfloat16* aux;
   int B, T, F, H;
   long long rows;
-  FastDiv divT;
+  FastDiv divT, divS;
 
   __device__ __forceinline__ RowPtr ptr(int d, long long k) const {
-    if (k >= rows) return RowPtr{-1, -1};
+    if (k >= rows) return RowPtr{-1, -1, -1};
     const int b = (int)divT.div((uint32_t)k), t = (int)k - b * T;
     const int tp = d ? t + 1 : t - 1;
-    return RowPtr{b * x_sb + t * x_st,
-                  (tp >= 0 && tp < T) ? b * s_sb + tp * s_st + d * H : -1};
+    const int xb = COND ? (int)divS.div((uint32_t)b) : b;
+    return RowPtr{xb * x_sb + t * x_st,
+                  (tp >= 0 && tp < T) ? b * s_sb + tp * s_st + d * H : -1,
+                  COND ? (long long)b * F : 0};
   }
   // element m of the row at r; m == F + H is the bias column
-  __device__ __forceinline__ __nv_bfloat16 at(const RowPtr& r, int m) const {
-    if (m < F) return x[r.x + m];
-    if (m < F + H) return r.h >= 0 ? h[r.h + m - F] : bf16_zero();
-    return __float2bfloat16(1.f);
+  __device__ __forceinline__ Loaded at(const RowPtr& r, int m) const {
+    const __nv_bfloat16 one = __float2bfloat16(1.f);
+    __nv_bfloat16 v, w = one;
+    if (m < F) {
+      v = x[r.x + m];
+      if constexpr (COND) w = aux[r.a + m];
+    } else if (m < F + H) {
+      v = r.h >= 0 ? h[r.h + m - F] : bf16_zero();
+    } else {
+      v = one;
+    }
+    if constexpr (COND) {
+      return BfPair{v, w};
+    } else {
+      return v;
+    }
+  }
+  __device__ __forceinline__ static Loaded zero() {
+    if constexpr (COND) {
+      return BfPair{bf16_zero(), bf16_zero()};
+    } else {
+      return bf16_zero();
+    }
   }
 };
+using Rows = RowsT<false>;
 
 // dg[d] (B T, 4H) = [x | h_prev] [W_ih^T; W_hh^T] + b; with XG (the
-// gate-input form, F = 0) h_prev W_hh^T + xg[d], xg added in the epilogue.
-template <bool XG>
+// gate-input form, F = 0) h_prev W_hh^T + xg[d], xg added in the epilogue;
+// with COND x is the conditioned rows (RowsT).
+template <bool XG, bool COND = false>
 struct GatesOp {
   static constexpr bool A_K_FAST = true, B_K_FAST = false;
   // two CTAs an SM (at most 128 registers a thread): the loads of one hide
   // behind the other's products, 1.4x at birnn0's 128 rows
   static constexpr int A_TERMS = 1, B_TERMS = 1, PASSES = 1, A_TABLE = 1, MIN_BLOCKS = 2;
-  Rows rows;
+  RowsT<COND> rows;
   const __nv_bfloat16* w_ih_t;  // (2, F, 4H)
   const __nv_bfloat16* w_hh_t;  // (2, H, 4H)
   const float* bias;            // (2, 4H); null with XG
@@ -254,9 +316,9 @@ struct GatesOp {
   __device__ __forceinline__ long long k_begin(int) const { return 0; }
   __device__ __forceinline__ long long k_end(int) const { return K; }
   __device__ __forceinline__ RowPtr row_ptr(int d, long long m) const { return rows.ptr(d, m); }
-  __device__ __forceinline__ __nv_bfloat16 a(int, int, long long m, long long k,
-                                             const RowPtr& r) const {
-    return (m < M && k < K) ? rows.at(r, (int)k) : bf16_zero();
+  __device__ __forceinline__ typename RowsT<COND>::Loaded a(int, int, long long m, long long k,
+                                                          const RowPtr& r) const {
+    return (m < M && k < K) ? rows.at(r, (int)k) : RowsT<COND>::zero();
   }
   __device__ __forceinline__ __nv_bfloat16 b(int d, int, long long k, int n) const {
     if (k >= K || n >= N) return bf16_zero();
@@ -279,11 +341,13 @@ struct GatesOp {
 // form) or H (gate-input form: dW_hh^T alone). With `splits` > 1 the B T
 // rows are cut into that many ranges of `kps` rows (blockIdx.z = 2 split +
 // d): split 0 writes out, split s > 0 the partial ws[s - 1], and
-// splitk_add_kernel then adds the partials to out in split order.
+// splitk_add_kernel then adds the partials to out in split order. With COND
+// x is the conditioned rows (RowsT).
+template <bool COND = false>
 struct WgradOp {
   static constexpr bool A_K_FAST = false, B_K_FAST = false;
   static constexpr int A_TERMS = 1, B_TERMS = 2, PASSES = 1, A_TABLE = 2, MIN_BLOCKS = 1;
-  Rows rows;
+  RowsT<COND> rows;
   const float* dg;
   float* out;
   float* ws;
@@ -297,9 +361,9 @@ struct WgradOp {
   __device__ __forceinline__ RowPtr row_ptr(int z, long long k) const {
     return rows.ptr(z & 1, k);
   }
-  __device__ __forceinline__ __nv_bfloat16 a(int, int, long long m, long long k,
-                                             const RowPtr& r) const {
-    return (m < M && k < K) ? rows.at(r, (int)m) : bf16_zero();
+  __device__ __forceinline__ typename RowsT<COND>::Loaded a(int, int, long long m, long long k,
+                                                          const RowPtr& r) const {
+    return (m < M && k < K) ? rows.at(r, (int)m) : RowsT<COND>::zero();
   }
   __device__ __forceinline__ float b(int z, int, long long k, int n) const {
     return (k < K && n < N) ? dg[((size_t)(z & 1) * K + k) * N + n] : 0.f;
@@ -347,6 +411,36 @@ struct DxOp {
     const float r = __bfloat162float(__float2bfloat16(v));
     float* p = dx + m * N + n;
     *p = d == 0 ? r : *p + r;
+  }
+};
+
+// dcond (M, N) = dg[0] W_ih,0 + dg[1] W_ih,1, the conditioned form's step 4:
+// one pass over K = 2G (the directions' G = 4H gate columns end to end), dg
+// split as in DxOp, summed in f32 and not rounded.
+struct DcondOp {
+  static constexpr bool A_K_FAST = true, B_K_FAST = true;
+  static constexpr int A_TERMS = 2, B_TERMS = 1, PASSES = 1, A_TABLE = 0, MIN_BLOCKS = 1;
+  const float* dg;              // (2, M, G)
+  const __nv_bfloat16* w_ih_t;  // (2, N, G): W_ih,d (G, N) transposed
+  float* out;                   // (M, N)
+  long long M;
+  int N, G;
+
+  __device__ __forceinline__ long long k_begin(int) const { return 0; }
+  __device__ __forceinline__ long long k_end(int) const { return 2LL * G; }
+  __device__ __forceinline__ RowPtr row_ptr(int, long long) const { return RowPtr{-1, -1, -1}; }
+  __device__ __forceinline__ float a(int, int, long long m, long long k, const RowPtr&) const {
+    if (m >= M || k >= 2LL * G) return 0.f;
+    const int d = k >= G, kk = (int)k - d * G;
+    return dg[((size_t)d * M + m) * G + kk];
+  }
+  __device__ __forceinline__ __nv_bfloat16 b(int, int, long long k, int n) const {
+    if (k >= 2LL * G || n >= N) return bf16_zero();
+    const int d = k >= G, kk = (int)k - d * G;
+    return w_ih_t[((size_t)d * N + n) * G + kk];
+  }
+  __device__ __forceinline__ void store(int, int, long long m, int n, float v) const {
+    if (m < M && n < N) out[m * N + n] = v;
   }
 };
 

@@ -1,9 +1,14 @@
-// The Hopper design of the bidirectional LSTM forward (bf16 storage), in two
-// forms chosen by a template parameter XG:
+// The Hopper design of the bidirectional LSTM forward (bf16 storage), in three
+// forms chosen by template parameters XG and COND:
 // - projection (XG false): the fully fused forward, x_t W_ih^T + b computed
 //   inside the kernel, so no (B, T, 8H) gate tensor is ever written.
 //   Replaces, with blstm_fullfused_fwd.cu, the TPU kernel `_ff_fwd_kernel`
 //   (tssep_tpu/kernels/blstm.py:797).
+// - conditioned projection (COND true): the projection form over the 'mul'-
+//   conditioned rows, row b = xs row b / S times aux row b, the product
+//   formed where x is staged, so the (B, S, T, F) tensor is never written.
+//   Replaces, with blstm_fullfused_cond_fwd.cu, the TPU kernel
+//   `_ffc_fwd_kernel` (:1656).
 // - gate inputs (XG true): the walk from gate inputs xg (B, T, 8H) computed
 //   outside. Replaces, with blstm_bidi_fwd.cu, the TPU kernel
 //   `_bi_fwd_kernel` (tssep_tpu/kernels/blstm.py:374).
@@ -36,6 +41,14 @@
 //     TMA ring would need shared memory that the 24- and 32-row tiles do not
 //     have left; at one step a chunk (those tiles) the stream is bound by L2
 //     bandwidth, not latency: a two-stage register pipeline gained nothing.
+//   - Conditioned form: as the projection form, but each staged value is
+//     bf16(x * aux), the exact product rounded once, as the materialized
+//     product; x comes from xs row b / S, aux from the tile's aux rows, read
+//     once for all of F into shared memory before the walk (2 BT KF bytes),
+//     so the staging reads no more from L2 than the projection form's. The
+//     product is a second pass over each staged row, 16 aligned bytes of x
+//     and of aux a load and two values an instruction, not a value at a
+//     time beside x's unaligned pieces.
 //   - Gate-input form: the producers copy the CTA's 4U gate columns of xg
 //     for each row and step, every load of a chunk in flight at once. The
 //     column of each local gate row comes from a table the host builds
@@ -45,8 +58,8 @@
 //     64 row-steps), so the loads of a chunk have several steps to land.
 // The reverse direction walks t = T-1 .. 0 over x (or xg) in place; no time
 // padding, no flipped copy. The launch geometry (C, U, BT, TC, the x block
-// KX) comes from `cluster_geometry` in kernels/blstm.py ('fwd' and 'fwd_xg');
-// the shared-memory formula below is the same as its `_fwd_shared`.
+// KX) comes from `cluster_geometry` in kernels/blstm.py ('fwd', 'fwd_cond' and
+// 'fwd_xg'); the shared-memory formula below is the same as its `_fwd_shared`.
 #pragma once
 
 #include "blstm_cluster.cuh"
@@ -62,10 +75,12 @@ struct FwdArgs {
   const uint4* whh;        // (2, C, U/4, KH/16, 32) fragments of W_hh^T slices
   const float* bias;       // (2, C, 4U) in local gate-row order
   const int* cols;         // gate inputs: (2, C, 4U) xg column of each local gate row, -1 padding
+  const __nv_bfloat16* aux;  // conditioned: (B, F) contiguous, one row per layer row
+  FastDiv divS;            // conditioned: layer row b reads x row b / S
   __nv_bfloat16* h_out;    // (B, T, 2H), strides (o_sb, o_st, 1)
   __nv_bfloat16* c_out;    // the same, or null
   long long o_sb, o_st;
-  int B, T, F, H;
+  int B, T, F, H;          // B: the layer's rows
   int U, nact;             // units per CTA; CTAs that own units
   int KH, KF, KX;          // H and F rounded up to 16; F's block per staging
 };
@@ -80,15 +95,27 @@ constexpr int kWBatch = 8;           // W_ih^T fragments in flight per producer 
 constexpr int kBarCons = 1, kBarFull = 2, kBarEmpty = 4, kBarProd = 6;
 
 // The W_hh^T slice, two h buffers, the ring, the staged x rows (projection
-// form only) and two mbarriers.
-inline size_t fwd_shared_bytes(int MT, int KH, int BT, int TC, int KX, bool xg) {
+// forms only), the tile's aux rows (conditioned form: KA = KF, else 0) and
+// two mbarriers.
+inline size_t fwd_shared_bytes(int MT, int KH, int BT, int TC, int KX, bool xg, int KA) {
   return (size_t)MT * (KH / 16) * 512 + (size_t)4 * BT * (KH + 8) +
          (size_t)kFwdRing * TC * MT * (BT / 8) * 512 + (xg ? 0 : (size_t)2 * TC * BT * (KX + 8)) +
-         16;
+         (size_t)2 * BT * KA + 16;
 }
 
-template <int NB, int TC, bool XG>
+// bf16(x * a) of two pairs of bf16 values (the bits of each pair in one
+// word), one instruction: the exact product rounded to nearest once, the
+// rounding of the materialized product (a product of two bf16 values is
+// exact in f32).
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t x, uint32_t a) {
+  uint32_t r;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(x), "r"(a));
+  return r;
+}
+
+template <int NB, int TC, bool XG, bool COND>
 __global__ void __launch_bounds__(kFwdMaxThreads, 1) cluster_fwd_kernel(const FwdArgs a) {
+  static_assert(!(XG && COND), "the conditioned form is a projection form");
   constexpr int BT = NB * 8;
   constexpr int NC = TC * NB;  // n-tiles of one chunk
   const int cta = (int)cluster_rank();
@@ -108,7 +135,8 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 1) cluster_fwd_kernel(const Fw
   __nv_bfloat16* hbuf = reinterpret_cast<__nv_bfloat16*>(whh_s + (size_t)MT * KSH * 32);
   float4* ring = reinterpret_cast<float4*>(hbuf + 2 * BT * HS);
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(ring + (size_t)kFwdRing * TC * MT * NB * 32);
-  uint64_t* hbar = reinterpret_cast<uint64_t*>(xs + (XG ? 0 : TC * BT * XS));
+  __nv_bfloat16* aux_s = xs + (XG ? 0 : TC * BT * XS);  // conditioned: (BT, KF)
+  uint64_t* hbar = reinterpret_cast<uint64_t*>(aux_s + (COND ? BT * a.KF : 0));
 
   const bool active = cta < a.nact;
   for (int i = threadIdx.x; i < BT * HS; i += nthr)  // both halves: h_{-1} = 0 and pads
@@ -116,6 +144,14 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 1) cluster_fwd_kernel(const Fw
   if (active) {
     const uint4* src = a.whh + (size_t)(dir * C + cta) * MT * KSH * 32;
     for (int i = threadIdx.x; i < MT * KSH * 32; i += nthr) whh_s[i] = src[i];
+    if constexpr (COND) {
+      // the tile's aux rows, zero past F and past the last row
+      for (int i = threadIdx.x; i < BT * a.KF; i += nthr) {
+        const int n = i / a.KF, k = i - n * a.KF;
+        aux_s[i] = (b0 + n < a.B && k < a.F) ? a.aux[(size_t)(b0 + n) * a.F + k]
+                                             : __float2bfloat16(0.f);
+      }
+    }
   }
   if (threadIdx.x == 0) {
     mbar_init(&hbar[0], 1);
@@ -280,7 +316,9 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 1) cluster_fwd_kernel(const Fw
         // kx0 .. kx0 + KX: warp mt takes rows mt, mt + MT, .., two at a time,
         // each read in 16-byte aligned pieces (a row may start at any
         // element) and written to shared memory value by value; columns past
-        // F and rows past B or T are zero.
+        // F and rows past B or T are zero. Conditioned form: row b reads x
+        // row b / S, and a second pass multiplies the staged row by aux row
+        // b, 16 aligned bytes of each at a time.
         constexpr int NX = TC * BT;
         for (int n0 = mt; n0 < NX; n0 += 2 * MT) {
           const uint4* base[2];
@@ -291,8 +329,9 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 1) cluster_fwd_kernel(const Fw
             const int s = j * TC + nn[r] / BT, b = b0 + nn[r] % BT;
             const bool real = nn[r] < NX && s < a.T && b < a.B;
             const int t = rev ? a.T - 1 - s : s;
+            const int xb = COND ? (int)a.divS.div((uint32_t)b) : b;
             len[r] = real ? (a.F - kx0 < a.KX ? a.F - kx0 : a.KX) : 0;
-            const __nv_bfloat16* src = a.x + (real ? b * a.x_sb + t * a.x_st + kx0 : 0);
+            const __nv_bfloat16* src = a.x + (real ? xb * a.x_sb + t * a.x_st + kx0 : 0);
             const uintptr_t at = reinterpret_cast<uintptr_t>(src);
             base[r] = reinterpret_cast<const uint4*>(at & ~uintptr_t(15));
             off[r] = (int)(at & 15) / 2;
@@ -323,6 +362,23 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 1) cluster_fwd_kernel(const Fw
                     dst[k] = (unsigned short)(w[e / 2] >> (16 * (e % 2)));
                 }
               }
+          }
+          if constexpr (COND) {
+            __syncwarp();  // the row's values, written by any lane, are in place
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              uint4* xr = reinterpret_cast<uint4*>(xs + nn[r] * XS);
+              const uint4* ar = reinterpret_cast<const uint4*>(aux_s + (nn[r] % BT) * a.KF + kx0);
+              for (int c = lane; c < (len[r] + 7) / 8; c += 32) {
+                uint4 v = xr[c];
+                const uint4 w = ar[c];
+                v.x = mul_bf16x2(v.x, w.x);
+                v.y = mul_bf16x2(v.y, w.y);
+                v.z = mul_bf16x2(v.z, w.z);
+                v.w = mul_bf16x2(v.w, w.w);
+                xr[c] = v;
+              }
+            }
           }
         }
         named_sync(kBarProd, pthr);
@@ -363,11 +419,11 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 1) cluster_fwd_kernel(const Fw
 using FwdKernel = void (*)(FwdArgs);
 
 // The instance of cluster_fwd_kernel for row tile BT and chunk TC, or null:
-// the projection form takes TC BT <= 32, the gate-input form TC BT <= 64.
-template <bool XG>
+// the projection forms take TC BT <= 32, the gate-input form TC BT <= 64.
+template <bool XG, bool COND = false>
 inline FwdKernel fwd_kernel(int BT, int TC) {
 #define TSSEP_CLUSTER_FWD(NB_, TC_) \
-  if (BT == 8 * NB_ && TC == TC_) return cluster_fwd_kernel<NB_, TC_, XG>
+  if (BT == 8 * NB_ && TC == TC_) return cluster_fwd_kernel<NB_, TC_, XG, COND>
   TSSEP_CLUSTER_FWD(1, 1);
   TSSEP_CLUSTER_FWD(1, 2);
   TSSEP_CLUSTER_FWD(1, 4);
@@ -386,15 +442,16 @@ inline FwdKernel fwd_kernel(int BT, int TC) {
 }
 
 // One layer, both directions, clusters of C CTAs. Returns a cudaError_t.
-template <bool XG>
+template <bool XG, bool COND = false>
 inline int cluster_fwd(const FwdArgs& a, int C, int BT, int TC, cudaStream_t stream) {
   const int MT = a.U / 4;
   const int threads = 2 * MT * 32;
-  if (threads > kFwdMaxThreads || a.U % 4 != 0 || a.nact > C || BT % 8 != 0)
+  if (threads > kFwdMaxThreads || a.U % 4 != 0 || a.nact > C || BT % 8 != 0 ||
+      (COND && a.aux == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_shared_bytes(MT, a.KH, BT, TC, a.KX, XG);
+  const size_t smem = fwd_shared_bytes(MT, a.KH, BT, TC, a.KX, XG, COND ? a.KF : 0);
   const dim3 grid(C, (a.B + BT - 1) / BT, 2);
-  return launch_clusters(fwd_kernel<XG>(BT, TC), grid, threads, smem, C, stream, a);
+  return launch_clusters(fwd_kernel<XG, COND>(BT, TC), grid, threads, smem, C, stream, a);
 }
 
 }  // namespace tc

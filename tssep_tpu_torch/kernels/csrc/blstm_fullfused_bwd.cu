@@ -78,6 +78,8 @@ extern "C" int tssep_blstm_fullfused_bwd_cluster(
   r.H = H;
   r.rows = rows;
   r.divT = make_fastdiv((uint32_t)T);
+  r.aux = nullptr;
+  r.divS = make_fastdiv(1);
   if (splits < 1 || (long long)(splits - 1) * 2 * (F + H + 1) * 4 * H > rows * F)
     return (int)cudaErrorInvalidValue;
   int err = 0;
@@ -116,7 +118,7 @@ extern "C" int tssep_blstm_fullfused_bwd_cluster(
     if (err != 0) return err;
   }
   if (parts & 4) {
-    WgradOp op;
+    WgradOp<> op;
     op.rows = r;
     op.dg = static_cast<const float*>(dg);
     op.out = static_cast<float*>(dw);

@@ -56,6 +56,8 @@ extern "C" int tssep_blstm_fullfused_fwd_cluster(
   a.whh = static_cast<const uint4*>(whh_p);
   a.bias = static_cast<const float*>(bias_p);
   a.cols = nullptr;
+  a.aux = nullptr;
+  a.divS = tssep::tc::make_fastdiv(1);
   a.h_out = static_cast<__nv_bfloat16*>(h_out);
   a.c_out = static_cast<__nv_bfloat16*>(c_out);
   a.o_sb = o_sb;
