@@ -16,18 +16,24 @@ Phases, each of which must pass:
    a served request (batch 16) and at the flagship training shapes (batch
    256); the backward kernels at a ragged shape and at the training shapes
    of batch 16 and of batch 256. The fully fused pair, the bidi pair and
-   the conditioned pair run, in bfloat16, the clustered Hopper kernels
-   (``csrc/blstm_cluster_*.cuh``, the bidi pair in their gate-input form,
-   the conditioned pair in their conditioned form): each forward is timed
-   beside the first design's kernels doing the same work (the spill forward
-   without boundaries; ``lstm_fwd`` for each direction; the conditioned
-   pair's own first design), the backward by its launches (gate product,
-   walk, weight sums and, fully fused, dx; conditioned, dcond and its
+   the conditioned pair and the spill pair run, in bfloat16, the clustered
+   Hopper kernels (``csrc/blstm_cluster_*.cuh``, the bidi pair in their
+   gate-input form, the conditioned pair in their conditioned form, the
+   spill pair with the forward writing the c boundaries and the walk
+   rebuilding c): each forward is timed beside the first design's kernels
+   doing the same work (the fully fused forward's own first design, run
+   through the spill forward's f32 route in bf16, without boundaries;
+   ``lstm_fwd`` for each direction; the conditioned and the spill pair's
+   own first designs), the backward by its launches (gate product, walk,
+   weight sums and, fully fused and spill, dx; conditioned, dcond and its
    split), each between CUDA events, the bidi backward beside ``lstm_bwd``
-   for each direction and the conditioned one beside its first design too.
-   The conditioned pair is also timed beside the route the default model
-   takes on the same work: the materialized product and the clustered fully
-   fused kernel at B S rows. The gate-input kernels (the bidi and the
+   for each direction and the conditioned and spill ones beside their first
+   designs too. The conditioned pair is also timed beside the route the
+   default model takes on the same work: the materialized product and the
+   clustered fully fused kernel at B S rows; the spill pair beside the fully
+   fused pair on the same work. In bfloat16 the spill forward's h is held
+   bit for bit against the fully fused forward's, and its boundaries
+   against that forward's saved c. The gate-input kernels (the bidi and the
    unidirectional pair) are timed beside one cuDNN LSTM call that computes
    their function from xg: input weights that select xg's columns, zero
    biases;
@@ -52,8 +58,8 @@ Phases, each of which must pass:
 8. training with ``fullfuse=False``: 2 steps, every layer through the
    gate-input kernels;
 9. serving with ``spill``: 3 requests, ``pre_net``, ``birnn0`` and
-   ``birnn1`` through the spill forward; masks and waveforms against the
-   default model and the plain versions;
+   ``birnn1`` through the spill forward; masks and waveforms bit for bit
+   the default model's, and against the plain versions;
 10. serving with ``bidi=False``: the same, ``birnn2`` one direction at a
     time through ``lstm_fwd``;
 11. training with ``spill``: 3 steps through the spill pair;
@@ -62,10 +68,12 @@ Phases, each of which must pass:
 13. training with ``fullfuse=False, bidi=False``: 2 steps, every direction
     of every layer through the unidirectional pair.
 
-Before them a ``cond_fuse`` line sums up the conditioned pair in bfloat16
-at batch 16: each kernel's time, bound, first design's time, materialized
-route's time and cuDNN yardstick, and the times and peak memory of
-``serve cond_fuse`` and ``train cond_fuse``. The last two lines of standard
+Before them a ``cond_fuse`` line and a ``spill`` line sum up the
+conditioned and the spill pair in bfloat16 at batch 16: each kernel's
+time, bound, first design's time, the time of the route it is compared
+with (materialized, or fully fused) and cuDNN yardstick, the backward's
+parts, and the times and peak memory of serving and training with the
+switch. The last two lines of standard
 output are the kernels' JSON line and the device's JSON line. Without CUDA
 it exits with code 1 and prints no result.
 """
@@ -135,7 +143,9 @@ BWD_RTOL = {F32: 1e-4, BF16: 1e-2}
 CLUSTER_TOL = {'blstm_fullfused_fwd': 1.6e-2, 'blstm_fullfused_bwd': 5e-3,
                'blstm_bidi_fwd': 1.6e-2, 'blstm_bidi_bwd': 5e-3,
                'blstm_fullfused_cond_fwd': 1.6e-2,
-               'blstm_fullfused_cond_bwd': 5e-3}
+               'blstm_fullfused_cond_bwd': 5e-3,
+               'blstm_fullfused_spill_fwd': 1.6e-2,
+               'blstm_fullfused_spill_bwd': 5e-3}
 #: The sources of the kernels each wrapper launches, by storage type.
 _CLUSTERED = {
     'fwd': {'bfloat16': 'tssep_tpu_torch/kernels/csrc/blstm_cluster_fwd.cuh',
@@ -147,7 +157,9 @@ DESIGNS = {'blstm_fullfused_fwd': _CLUSTERED['fwd'],
            'blstm_bidi_fwd': _CLUSTERED['fwd'],
            'blstm_bidi_bwd': _CLUSTERED['bwd'],
            'blstm_fullfused_cond_fwd': _CLUSTERED['fwd'],
-           'blstm_fullfused_cond_bwd': _CLUSTERED['bwd']}
+           'blstm_fullfused_cond_bwd': _CLUSTERED['bwd'],
+           'blstm_fullfused_spill_fwd': _CLUSTERED['fwd'],
+           'blstm_fullfused_spill_bwd': _CLUSTERED['bwd']}
 #: One training step, kernels against plain versions: the loss (abs) and
 #: each parameter's gradient (max abs error over max abs value). float32:
 #: f32 sums in another order through the forward, the ISTFT and the
@@ -300,6 +312,9 @@ def phase_device():
 #: show them.
 CLUSTER_KERNELS = ('cluster_fwd_kernel', 'cluster_walk_kernel', 'GatesOp',
                    'WgradOp', 'DxOp', 'DcondOp', 'splitk_add_kernel')
+#: The walk's spill form: ``cluster_walk_kernel`` with its last template
+#: argument true, ``Lb1E`` at the end of the mangled template arguments.
+SPILL_WALK = 'cluster_walk_kernel, spill form'
 
 
 def _ptxas_summary(log_text):
@@ -309,8 +324,10 @@ def _ptxas_summary(log_text):
         if 'Compiling entry function' in line and any(
                 k in line for k in CLUSTER_KERNELS):
             name = next(k for k in CLUSTER_KERNELS if k in line)
+            if name == 'cluster_walk_kernel' and 'Lb1EEEv' in line:
+                name = SPILL_WALK
             tail = [t for t in lines[i + 1:i + 4]
-                    if 'registers' in t or 'spill' in t or 'smem' in t]
+                    if 'registers' in t or 'spill stores' in t or 'smem' in t]
             yield name, line.split("'")[1] if "'" in line else line, tail
 
 
@@ -321,8 +338,8 @@ def phase_build():
     for line in result.log.splitlines():
         if line.strip():
             log(f'  {line.strip()}')
-    log('ptxas, clustered kernels (bf16 route of the fully fused, bidi and '
-        'conditioned pairs):')
+    log('ptxas, clustered kernels (bf16 route of the fully fused, bidi, '
+        'conditioned and spill pairs):')
     for name, entry, tail in _ptxas_summary(result.log):
         log(f'  {name}: {entry}: {" | ".join(tail)}')
     _build.library()
@@ -389,10 +406,12 @@ def fullfused_case(label, B, T, F, H, dtype, gen):
         tol=CLUSTER_TOL['blstm_fullfused_fwd'] if dtype == BF16 else None)
     row['design'] = DESIGNS['blstm_fullfused_fwd'][row['dtype']]
     if dtype == BF16:
-        # the first design's kernel on the same work: the spill forward
-        # writes h only, without boundaries, as the fully fused one did
+        # the first design's kernel on the same work: the spill forward's
+        # first design writes h only, without boundaries, as the fully fused
+        # one did
         row['first_design_ms'] = cuda_ms(
-            lambda: kb.blstm_fullfused_spill_fwd(x, w_ih_t, w_hh_t, bias))
+            lambda: kb._fullfused_spill_fwd_first(x, w_ih_t, w_hh_t, bias,
+                                                  False))
         row['geometry'] = dataclasses.asdict(
             kb._geometry('fwd', B, F, H, x.device))
     return row
@@ -412,7 +431,7 @@ def spill_case(label, B, T, F, H, dtype, gen):
     lstm.flatten_parameters()
     bounds = not label.startswith('serve')
     nblk = -(-T // kb.SPILL_BLOCK)
-    return _case(
+    row = _case(
         f'blstm_fullfused_spill_fwd {label} B={B} T={T} F={F} H={H}', dtype,
         lambda: kb.blstm_fullfused_spill_fwd(x, w_ih_t, w_hh_t, bias,
                                              with_boundaries=bounds),
@@ -421,7 +440,43 @@ def spill_case(label, B, T, F, H, dtype, gen):
         got, want, flops=2 * B * T * 2 * (F + H) * 4 * H,
         nbytes=size * (B * T * F + 2 * (F + H) * 4 * H + B * T * 2 * H
                        + bounds * 2 * nblk * B * H) + 4 * 2 * 4 * H,
-        library=lambda: lstm(x))
+        library=lambda: lstm(x),
+        tol=CLUSTER_TOL['blstm_fullfused_spill_fwd'] if dtype == BF16
+        else None)
+    row['design'] = DESIGNS['blstm_fullfused_spill_fwd'][row['dtype']]
+    if dtype == BF16:
+        row['identical_to_fullfused'] = _spill_bits(
+            got, x, w_ih_t, w_hh_t, bias)
+        row['first_design_ms'] = cuda_ms(
+            lambda: kb._fullfused_spill_fwd_first(x, w_ih_t, w_hh_t, bias,
+                                                  bounds))
+        # the fully fused forward on the same work, with c where the spill
+        # forward writes boundaries
+        row['fullfused_ms'] = cuda_ms(lambda: kb.blstm_fullfused_fwd(
+            x, w_ih_t, w_hh_t, bias, with_cell=bounds))
+        row['geometry'] = dataclasses.asdict(
+            kb._geometry('fwd', B, F, H, x.device))
+    return row
+
+
+def _spill_bits(got, x, w_ih_t, w_hh_t, bias):
+    """The bf16 spill forward's h is the fully fused forward's, bit for bit,
+    on the same input, and each boundary slot k > 0 is that forward's saved
+    c after walk step k SPILL_BLOCK - 1 (t = that step forward, T - k
+    SPILL_BLOCK reverse); slot 0 is zero. Checks; returns True."""
+    h, cb = got
+    T, H = x.shape[1], w_hh_t.shape[1]
+    h_ff, c_ff = kb.blstm_fullfused_fwd(x, w_ih_t, w_hh_t, bias,
+                                        with_cell=True)
+    check(torch.equal(h, h_ff), 'the spill forward\'s h is the fully fused '
+          'forward\'s, bit for bit')
+    S = kb.SPILL_BLOCK
+    same = not cb[:, 0].any() and all(
+        torch.equal(cb[0, k], c_ff[:, S * k - 1, :H])
+        and torch.equal(cb[1, k], c_ff[:, T - S * k, H:])
+        for k in range(1, cb.shape[1]))
+    check(same, 'each boundary slot is the fully fused forward\'s saved c')
+    return True
 
 
 def lstm_case(label, B, T, H, reverse, dtype, gen):
@@ -782,12 +837,7 @@ def _parts_ms(run, parts):
 
 def _bwd_parts_ms(args):
     """The bf16 fully fused backward's four parts (:func:`_parts_ms`)."""
-    x, w_ih_t, w_hh_t, bias, h, c, dh = args
-    B, T, F = x.shape
-    H = w_hh_t.shape[1]
-    out = (torch.empty(2, B, T, 4 * H, device='cuda'),
-           torch.empty(2, F + H + 1, 4 * H, device='cuda'),
-           torch.empty(B, T, F, device='cuda'))
+    out = kb._fullfused_bwd_buffers(args[0], args[2].shape[1])
     return _parts_ms(lambda bits: kb._fullfused_bwd_cluster(
         *args, parts=bits, out=out), kb.FULLFUSED_BWD_PARTS)
 
@@ -802,21 +852,43 @@ def spill_bwd_case(label, B, T, F, H, dtype, gen):
     args = (x, w_ih_t, w_hh_t, bias, h, cb, dh)
     rows = B * T
     # operations: as the fully fused backward's (the gate pre-activations
-    # on storage operands; dh, the weight and bias sums and dx on f32 ones).
-    # bytes: x, h, the boundaries, dh and the weights read once, dx and the
-    # weight gradients written once (f32).
+    # on storage operands; dh, the weight and bias sums and dx on f32 ones,
+    # in bf16 storage each as two bf16 products, the split). bytes: x, h,
+    # the boundaries, dh and the weights read once, dx and the weight
+    # gradients written once (f32).
     rec = 2 * rows * 2 * (F + H) * 4 * H
     grad = 2 * rows * 2 * (4 * H * H + (F + H + 1) * 4 * H + 4 * H * F)
     nbytes = (size * (rows * F + 2 * rows * 2 * H
                       + 2 * -(-T // kb.SPILL_BLOCK) * B * H
                       + 2 * (F + H) * 4 * H)
               + 4 * (2 * 4 * H + rows * F + 2 * (F + H + 1) * 4 * H))
-    return _bwd_case(
+    row = _bwd_case(
         f'blstm_fullfused_spill_bwd {label} B={B} T={T} F={F} H={H}', dtype,
         lambda: kb.blstm_fullfused_spill_bwd(*args),
         lambda: kb.blstm_fullfused_spill_bwd_plain(*args),
-        ('dx', 'dw_ih', 'dw_hh', 'db'), bwd_bound(rec, grad, nbytes, dtype),
-        library=lambda: _cudnn_bwd(x, dh, H), split=label.endswith('birnn0'))
+        ('dx', 'dw_ih', 'dw_hh', 'db'),
+        bwd_bound(rec, grad, nbytes, dtype, split=dtype == BF16),
+        library=lambda: _cudnn_bwd(x, dh, H), split=label.endswith('birnn0'),
+        tol=CLUSTER_TOL['blstm_fullfused_spill_bwd'] if dtype == BF16
+        else None)
+    row['design'] = DESIGNS['blstm_fullfused_spill_bwd'][row['dtype']]
+    if dtype == BF16:
+        out = kb._fullfused_bwd_buffers(x, H)
+        row['parts_ms'] = _parts_ms(lambda bits: kb._fullfused_spill_bwd_cluster(
+            *args, parts=bits, out=out), kb.SPILL_BWD_PARTS)
+        del out
+        row['first_design_ms'] = cuda_ms(
+            lambda: kb._fullfused_spill_bwd_first(*args))
+        # the fully fused backward on the same work, from its forward's h
+        # and c (made outside the timed call)
+        h_ff, c_ff = kb.blstm_fullfused_fwd(x, w_ih_t, w_hh_t, bias,
+                                            with_cell=True)
+        row['fullfused_ms'] = cuda_ms(lambda: kb.blstm_fullfused_bwd(
+            x, w_ih_t, w_hh_t, bias, h_ff, c_ff, dh))
+        del h_ff, c_ff
+        row['geometry'] = dataclasses.asdict(
+            kb._geometry('bwd_spill', B, F, H, x.device, 'spill'))
+    return row
 
 
 def lstm_bwd_case(label, B, T, H, reverse, dtype, gen):
@@ -1323,11 +1395,12 @@ def _train_checks(model, batch, label, **switches):
     return agree
 
 
-def phase_serving_switch(label, per_request, **switches):
+def phase_serving_switch(label, per_request, identical=False, **switches):
     """Serving with ``switches``: ``REQUESTS`` requests of the same weights
     and requests as the default, through the kernels ``per_request`` names;
-    masks and waveforms against the default model and the plain versions;
-    the peak memory of one request with and without the switches."""
+    masks and waveforms against the default model (with ``identical``, bit
+    for bit) and the plain versions; the peak memory of one request with
+    and without the switches."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model, base = _flagship(**switches), _flagship()
@@ -1345,6 +1418,16 @@ def phase_serving_switch(label, per_request, **switches):
              'plain': _agreement(model, requests[0], BF16),
              'plain f32': _agreement(_flagship(F32, **switches), requests[0],
                                      F32)}
+    if identical:
+        for ex in requests:
+            got, want = model(ex), base(ex)
+            check(torch.equal(got.mask, want.mask)
+                  and torch.equal(got.time_estimate, want.time_estimate),
+                  f'{label}: masks and waveforms bit for bit the default '
+                  f'model\'s')
+        agree['default bit for bit'] = True
+        log(f'{label}: masks and waveforms of {REQUESTS} requests bit for '
+            f'bit the default model\'s')
     peak = {'switched': _peak_mib(lambda: model(requests[0])),
             'default': _peak_mib(lambda: base(requests[0]))}
     log(f'{label}: peak memory of one request of batch {SERVE_BATCH} over '
@@ -1384,25 +1467,30 @@ def phase_training_switch(label, steps, per_step, **switches):
             'agreement': agree}
 
 
-def cond_summary(rows, serving, training):
-    """Logs the conditioned pair in bfloat16 at batch 16: each kernel's
-    numbers on a served request (forward) or a training step (backward)
-    beside its first design, the materialized route and the cuDNN
-    yardstick, and the times and peak memory of ``serve cond_fuse`` and
-    ``train cond_fuse``."""
+def pair_summary(switch, pair, rows, serving, training):
+    """Logs a redesigned pair in bfloat16 at batch 16: each kernel's
+    numbers, summed over its calls on a served request (forward) or a
+    training step (backward), beside its first design, the route it is
+    compared with and the cuDNN yardstick, and the times and peak memory of
+    serving and training with ``switch``."""
     keys = ('ms', 'bound_ms', 'first_design_ms', 'materialized_ms',
             'fullfused_ms', 'library_ms', 'parts_ms')
     out = {}
-    for name, tag in (('blstm_fullfused_cond_fwd', ' serve '),
-                      ('blstm_fullfused_cond_bwd', ' train ')):
-        row = next(r for r in rows[name]
-                   if tag in r['name'] and r['dtype'] == 'bfloat16')
-        out[name] = {k: row[k] for k in keys if k in row}
-    out['serve cond_fuse'] = {'ms': serving['ms'],
+    for name, tag in zip(pair, (' serve ', ' train ')):
+        path = [r for r in rows[name]
+                if tag in r['name'] and r['dtype'] == 'bfloat16']
+        out[name] = {k: sum(r[k] for r in path) for k in keys
+                     if all(r.get(k) is not None for r in path)
+                     and k != 'parts_ms'}
+        if all('parts_ms' in r for r in path):
+            out[name]['parts_ms'] = {
+                part: sum(r['parts_ms'][part] for r in path)
+                for part in path[0]['parts_ms']}
+    out[f'serve {switch}'] = {'ms': serving['ms'],
                               'peak_mib': serving['peak_mib']}
-    out['train cond_fuse'] = {'step_ms': training['step_ms'],
+    out[f'train {switch}'] = {'step_ms': training['step_ms'],
                               'peak_mib': training['peak_mib']}
-    log(f'cond_fuse (bf16, batch 16): {json.dumps(out)}')
+    log(f'{switch} (bf16, batch 16): {json.dumps(out)}')
 
 
 def kernels_line(rows, phase_launches):
@@ -1477,7 +1565,7 @@ def main():
                 fullfuse=False)),
             ('serve spill', lambda label: phase_serving_switch(
                 label, {'blstm_fullfused_spill_fwd': 3, 'blstm_bidi_fwd': 1},
-                spill=True)),
+                identical=True, spill=True)),
             ('serve bidi=False', lambda label: phase_serving_switch(
                 label, {'blstm_fullfused_fwd': 3, 'lstm_fwd': 2},
                 bidi=False)),
@@ -1498,7 +1586,12 @@ def main():
         log(f'-- {label} done at {time.perf_counter() - t0:.1f} s')
     log(json.dumps({'serving cond_fuse': serving_cond, 'training': training,
                     **switched}))
-    cond_summary(rows, serving_cond, switched['train cond_fuse'])
+    pair_summary('cond_fuse', ('blstm_fullfused_cond_fwd',
+                               'blstm_fullfused_cond_bwd'), rows,
+                 serving_cond, switched['train cond_fuse'])
+    pair_summary('spill', ('blstm_fullfused_spill_fwd',
+                           'blstm_fullfused_spill_bwd'), rows,
+                 switched['serve spill'], switched['train spill'])
     print(json.dumps(kernels_line(rows, {
         'serve': serve_launches,
         'serve cond_fuse': serving_cond['launches'],

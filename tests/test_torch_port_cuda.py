@@ -1,11 +1,13 @@
 """The port's ten CUDA kernels against their plain versions, on the card.
 
-The fully fused pair's, the bidi pair's and the conditioned pair's bfloat16
-routes run the clustered Hopper kernels (``csrc/blstm_cluster_*.cuh``, the
-bidi pair in their gate-input form, the conditioned pair in their
-conditioned form); their tests below stress the cluster split, the row
-tiles and waves, the x staging (and the conditioned product formed there),
-the copy of xg and the walk, at the acceptance tolerances: forward 1.6e-2
+The fully fused pair's, the bidi pair's, the conditioned pair's and the
+spill pair's bfloat16 routes run the clustered Hopper kernels
+(``csrc/blstm_cluster_*.cuh``, the bidi pair in their gate-input form, the
+conditioned pair in their conditioned form, the spill pair with the
+forward writing the c boundaries and the walk rebuilding c); their tests
+below stress the cluster split, the row tiles and waves, the x staging (and
+the conditioned product formed there), the copy of xg, the boundaries and
+the walk, at the acceptance tolerances: forward 1.6e-2
 abs (one bf16 ulp of c below 4, flipped by a sum order that differs from
 the plain version's), backward 5e-3 of each output's peak (dx is rounded to
 bf16 per direction, the conditioned dx and daux once; the gate gradients
@@ -558,6 +560,117 @@ def test_cluster_cond_capacity_is_that_of_the_kernel_that_runs(gen):
         held = kb._cluster_slots('fwd_cond', device, geo.cluster,
                                  geo.row_tile, geo.chunk, geo.threads,
                                  geo.shared, route='cond')
+        assert held is not None and held * geo.cluster <= sms
+        assert geo.clusters_per_wave == min(held, geo.clusters)
+        if rows <= 128:
+            assert geo.waves == 1
+
+
+# The spill pair's bf16 route (the fully fused forward writing the c
+# boundaries, the walk rebuilding c itself), (B, T, F, H): H 16 on a cluster
+# of 4, H 37 with CTAs that own no unit, H 300 as served and trained and
+# H 512 on a 16-CTA cluster; T 1, 7, 8, 9, 37 and 316 (a spill block's
+# edges and a short last block); 1 to 2048 rows (the flagship's batch 256,
+# more than one wave; 300 rows at H 512 too).
+SPILL_CLUSTER_CASES = [(1, 1, 12, 16), (13, 7, 513, 37), (13, 8, 40, 300),
+                       (16, 9, 513, 300), (5, 37, 20, 300),
+                       (128, 316, 513, 300), (300, 37, 2048, 512),
+                       (2048, 9, 320, 300)]
+
+
+@pytest.mark.parametrize('B,T,F,H', SPILL_CLUSTER_CASES)
+def test_cluster_spill_fwd_matches_plain_and_fullfused(gen, B, T, F, H):
+    """h and the boundaries against the plain version; h bit for bit the
+    fully fused forward's, and each boundary slot its saved c at that step
+    of the walk (slot 0 zero); without boundaries the same h."""
+    x, w_ih_t, w_hh_t, bias, *_ = _fullfused_bwd_inputs(gen, torch.bfloat16,
+                                                        B, T, F, H)
+    before = kb.blstm_fullfused_spill_fwd.launches
+    h, cb = kb.blstm_fullfused_spill_fwd(x, w_ih_t, w_hh_t, bias,
+                                         with_boundaries=True)
+    assert kb.blstm_fullfused_spill_fwd.launches == before + 1
+    want = kb.blstm_fullfused_spill_fwd_plain(x, w_ih_t, w_hh_t, bias,
+                                              with_boundaries=True)
+    assert cb.shape == (2, -(-T // kb.SPILL_BLOCK), B, H)
+    for g, w in zip((h, cb), want):
+        torch.testing.assert_close(g.float(), w.float(),
+                                   atol=CLUSTER_FWD_ATOL, rtol=0)
+    h_ff, c_ff = kb.blstm_fullfused_fwd(x, w_ih_t, w_hh_t, bias,
+                                        with_cell=True)
+    assert torch.equal(h, h_ff)
+    assert not cb[:, 0].any()
+    S = kb.SPILL_BLOCK
+    for k in range(1, cb.shape[1]):
+        assert torch.equal(cb[0, k], c_ff[:, S * k - 1, :H])
+        assert torch.equal(cb[1, k], c_ff[:, T - S * k, H:])
+    served, none = kb.blstm_fullfused_spill_fwd(x, w_ih_t, w_hh_t, bias)
+    assert none is None and torch.equal(served, h)
+
+
+@pytest.mark.parametrize('B,T,F,H', SPILL_CLUSTER_CASES)
+def test_cluster_spill_bwd_matches_plain_and_repeats(gen, B, T, F, H):
+    """dx and the weight gradients against the plain version (c rebuilt
+    from the bf16 boundaries, dx rounded per direction); two launches give
+    the same bits."""
+    x, w_ih_t, w_hh_t, bias, *_, dh = _fullfused_bwd_inputs(
+        gen, torch.bfloat16, B, T, F, H)
+    h, cb = kb.blstm_fullfused_spill_fwd(x, w_ih_t, w_hh_t, bias,
+                                         with_boundaries=True)
+    args = (x, w_ih_t, w_hh_t, bias, h, cb, dh)
+    before = kb.blstm_fullfused_spill_bwd.launches
+    got = kb.blstm_fullfused_spill_bwd(*args)
+    again = kb.blstm_fullfused_spill_bwd(*args)
+    assert kb.blstm_fullfused_spill_bwd.launches == before + 2
+    shapes = [(B, T, F), (2, F, 4 * H), (2, H, 4 * H), (2, 4 * H)]
+    for g, a, shape in zip(got, again, shapes):
+        assert g.shape == shape and g.dtype == torch.float32
+        assert torch.equal(g, a)
+    want = kb.blstm_fullfused_spill_bwd_plain(*args)
+    assert _rel_err(got, want) <= CLUSTER_BWD_RTOL
+
+
+def test_cluster_spill_strided_inputs_read_in_place(gen):
+    """The spill pair's bf16 route reads x and dh with any batch and time
+    strides (slices of wider tensors), giving the bits of contiguous
+    inputs."""
+    B, T, F, H = 6, 19, 24, 37
+    x, w_ih_t, w_hh_t, bias, *_ = _fullfused_bwd_inputs(gen, torch.bfloat16,
+                                                        B, T, F, H)
+    wide_x = torch.zeros(B, T + 1, 2 * F, device='cuda', dtype=torch.bfloat16)
+    wide_x[:, 1:, 3:F + 3] = x
+    xv = wide_x[:, 1:, 3:F + 3]
+    got = kb.blstm_fullfused_spill_fwd(xv, w_ih_t, w_hh_t, bias,
+                                       with_boundaries=True)
+    want = kb.blstm_fullfused_spill_fwd(x, w_ih_t, w_hh_t, bias,
+                                        with_boundaries=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    h, cb = want
+    wide_dh = torch.randn(B, T + 3, 3 * H, generator=gen,
+                          device='cuda').to(torch.bfloat16)
+    dh = wide_dh[:, 1:T + 1, :2 * H]
+    got = kb.blstm_fullfused_spill_bwd(xv, w_ih_t, w_hh_t, bias, h, cb, dh)
+    want = kb.blstm_fullfused_spill_bwd(x, w_ih_t, w_hh_t, bias, h, cb,
+                                        dh.contiguous())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_cluster_spill_capacity_is_that_of_the_kernel_that_runs(gen):
+    """The spill walk's geometry (kind 'bwd_spill') asks
+    cudaOccupancyMaxActiveClusters about the spill instance of the walk
+    (``tssep_spill_walk_slots``), at the row tile, threads and shared bytes
+    it picks, its cache of rebuilt c included: at the flagship's 16 and 128
+    rows one wave, at 2048 every wave fits the card."""
+    device = torch.device('cuda', torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    assert kb._SLOT_QUERIES['bwd_spill', 'spill'] == 'tssep_spill_walk_slots'
+    for rows, F in ((16, 513), (128, 513), (128, 320), (2048, 513)):
+        geo = kb._geometry('bwd_spill', rows, F, 300, device, 'spill')
+        assert geo.kind == 'bwd_spill'
+        held = kb._cluster_slots('bwd_spill', device, geo.cluster,
+                                 geo.row_tile, geo.chunk, geo.threads,
+                                 geo.shared, route='spill')
         assert held is not None and held * geo.cluster <= sms
         assert geo.clusters_per_wave == min(held, geo.clusters)
         if rows <= 128:

@@ -67,11 +67,13 @@ def _check(geo, rows, F, H):
     else:
         assert geo.threads <= 512
         assert U * geo.row_tile <= 4 * geo.threads
+        cache = kb.SPILL_BLOCK + 1 if geo.kind == 'bwd_spill' else 0
         assert geo.shared == kb._walk_shared(MT, KH, U, geo.active,
-                                             geo.row_tile)
+                                             geo.row_tile, cache)
 
 
-@pytest.mark.parametrize('kind', ['fwd', 'bwd', 'fwd_xg', 'fwd_cond'])
+@pytest.mark.parametrize('kind', ['fwd', 'bwd', 'fwd_xg', 'fwd_cond',
+                                  'bwd_spill'])
 @pytest.mark.parametrize('slots', [None, _h100_slots],
                          ids=['sms-over-cluster', 'h100-capacity'])
 @pytest.mark.parametrize('H', [16, 37, 300, 512])
@@ -87,7 +89,8 @@ def test_geometry_invariants(kind, slots, H):
 
 @pytest.mark.parametrize('kind,largest_of_8', [('fwd', 320), ('bwd', 416),
                                                ('fwd_xg', 320),
-                                               ('fwd_cond', 320)])
+                                               ('fwd_cond', 320),
+                                               ('bwd_spill', 416)])
 def test_cluster_size_follows_hidden_size(kind, largest_of_8):
     """8 CTAs (portable) up to the largest H whose share fits one CTA: 10
     m-tiles of four units in the forward, the walk's shared memory in the
@@ -379,3 +382,42 @@ def test_conditioned_rows_map_to_xs_row_and_aux_row(B, S):
         torch.testing.assert_close(cond[r], xs[r // S] * rows[r][None],
                                    atol=0, rtol=0)
     assert sorted({r // S for r in range(B * S)}) == list(range(B))
+
+
+def test_spill_walk_geometry_holds_the_rebuilt_cells():
+    """The spill form of the walk (kind 'bwd_spill') holds, beside the
+    walk's shared memory, SPILL_BLOCK + 1 f32 c values per (unit, row) of
+    its tile: at the flagship's 16 and 128 rows it takes the fully fused
+    walk's plan (8 and 24-row tiles, one wave on an H100), at 2048 rows
+    24-row tiles where the fully fused walk takes 32 (whose 46 KB of
+    cells do not fit)."""
+    def g(kind, rows):
+        return kb.cluster_geometry(kind, rows, 513, 300, slots=_h100_slots)
+
+    for rows in (16, 128, 2048):
+        walk, spill = g('bwd', rows), g('bwd_spill', rows)
+        assert spill.kind == 'bwd_spill'
+        assert (spill.cluster, spill.units, spill.threads) == (8, 40, 512)
+        assert spill.shared == kb._walk_shared(
+            10, 304, 40, 8, spill.row_tile, kb.SPILL_BLOCK + 1)
+        assert spill.shared <= 232448
+        if rows <= 128:
+            assert spill.row_tile == walk.row_tile and spill.waves == 1
+    assert g('bwd', 2048).row_tile == 32 and g('bwd_spill', 2048).row_tile == 24
+    assert kb._walk_shared(10, 304, 40, 8, 32, kb.SPILL_BLOCK + 1) > 232448
+
+
+@pytest.mark.parametrize('kind,route', sorted(kb._SLOT_QUERIES))
+def test_each_slot_query_is_a_kernel_capacity_export(kind, route):
+    """Each (kind, route) of the capacity queries names a geometry kind and
+    a C export of the kernels' library that takes the plan's numbers (the
+    walk's without a chunk) and a pointer to the count, defined in one of
+    the CUDA sources."""
+    from tssep_tpu_torch.kernels import _build
+    name = kb._SLOT_QUERIES[kind, route]
+    assert kind in kb.GEOMETRY_KINDS
+    argtypes = _build._SIGNATURES[name]
+    ints = 4 if kind.startswith('bwd') else 5
+    assert argtypes == [_build._I] * ints + [_build._P]
+    sources = ''.join(p.read_text() for p in _build.CSRC.glob('*.cu'))
+    assert f'extern "C" int {name}(' in sources

@@ -191,6 +191,31 @@ def test_not_ported_options_raise():
         Model.from_config(cfg, device='cpu')
 
 
+@pytest.mark.parametrize('kwargs,raises', [
+    (dict(combination='mul', num_averaged_permutations=2), True),
+    (dict(combination='mul', num_averaged_permutations=2, ts_vad=3), False),
+    (dict(combination='cat'), True),
+    (dict(combination='cat', aux_net_output_size=20), False),
+    (dict(combination='mul'), False),
+    (dict(combination='mul', aux_net_output_size=20), True),
+    (dict(combination='mul', aux_net_output_size=16), False),
+])
+def test_estimator_arguments_checked_as_jax(kwargs, raises):
+    """The port's MaskEstimator raises on exactly the arguments that the
+    JAX one rejects, built directly (no config defaults)."""
+    from tssep_tpu.nn.estimator import MaskEstimator as JaxEstimator
+    from tssep_tpu_torch.nn.estimator import MaskEstimator
+    args = dict(idim=16, odim=16, layers=1, units=8, projs=8, **kwargs)
+    for build in (lambda: JaxEstimator(**args),
+                  lambda: MaskEstimator(**args, storage_dtype=F32,
+                                        device='cpu')):
+        if raises:
+            with pytest.raises((AssertionError, ValueError)):
+                build()
+        else:
+            build()
+
+
 # -- package rules -----------------------------------------------------------
 
 def test_port_imports_no_jax():

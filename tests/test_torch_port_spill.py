@@ -151,6 +151,57 @@ def test_spill_bwd_plain_matches_fullfused_bwd_in_float32():
         _close(g, w, GRAD_ATOL)
 
 
+@pytest.mark.parametrize('B,T', [(2, 19)])
+def test_spill_bwd_plain_in_bf16_matches_jax(kb, monkeypatch, B, T):
+    """In bf16 storage the plain backward (the function the card holds the
+    bf16 kernel against) rebuilds c in float32 from the bf16 boundaries and
+    rounds dx to bf16 per direction before the float32 sum, as
+    ``_ffs_layer_bwd`` does (in interpret mode, JAX's storage dtype set to
+    bf16; T ragged, its last spill block short). Both sides read the same
+    bf16 h and boundaries, JAX's forward residuals. dx is compared as the
+    layer returns it, rounded to x's dtype after the sum; rounding the two
+    directions' sum once instead would move dx by a bf16 ulp of the value,
+    more than the tolerance."""
+    monkeypatch.setattr(kb, 'STORAGE_DTYPE', jnp.bfloat16)
+    BF = torch.bfloat16
+    x, params, dout = _inputs(B, T, seed=B * 100 + T)
+    x_t, dout_t = (torch.from_numpy(a).to(BF) for a in (x, dout))
+
+    def jbf(t):
+        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+    def tbf(a):
+        return torch.from_numpy(np.array(a.astype(jnp.float32))).to(BF)
+
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    h_ref, res = kb._ffs_layer_fwd(jp, jbf(x_t))
+    ref_params, ref_dx = kb._ffs_layer_bwd(res, jbf(dout_t))
+    assert ref_dx.dtype == jnp.bfloat16
+    _, _, _, _, cbf, cbr, _, _ = res
+    assert cbf.dtype == jnp.bfloat16
+    h = tbf(h_ref)
+    cb = torch.stack([tbf(cbf)[:, :B], tbf(cbr)[:, :B]])
+    assert cb.shape == (2, -(-T // port.SPILL_BLOCK), B, H)
+
+    w_ih_t, w_hh_t, bias = _kernel_args(params)
+    args = (x_t, w_ih_t.to(BF), w_hh_t.to(BF), bias, h, cb, dout_t)
+    dx, dw_ih_t, dw_hh_t, db = port.blstm_fullfused_spill_bwd_plain(*args)
+    assert dx.dtype == F32
+    ref_dx = np.asarray(ref_dx.astype(jnp.float32))
+    _close(dx.to(BF).float(), ref_dx, GRAD_ATOL)
+    for d, suffix in enumerate(('', '_reverse')):
+        _close(dw_ih_t[d].T, ref_params['weight_ih_l0' + suffix], GRAD_ATOL)
+        _close(dw_hh_t[d].T, ref_params['weight_hh_l0' + suffix], GRAD_ATOL)
+        _close(db[d], ref_params['bias_ih_l0' + suffix], GRAD_ATOL)
+        _close(db[d], ref_params['bias_hh_l0' + suffix], GRAD_ATOL)
+
+    # the check can fail: the two directions' sum rounded once
+    dgates = port._spill_bwd_gates(*args)
+    wih = args[1].float()
+    once = sum(torch.matmul(dgates[d], wih[d].T) for d in range(2))
+    assert np.abs(once.to(BF).float().numpy() - ref_dx).max() > GRAD_ATOL
+
+
 def test_spill_gradients_stay_float32_in_bf16_storage():
     """With bf16 storage the Function takes float32 master weights and
     returns float32 gradients for all eight parameters; dx comes back in

@@ -34,19 +34,22 @@ inputs ``xg`` (B, T, 4H) and its backward, dxg and dW_hh; ``reverse=True``
 walks t = T-1 .. 0.
 The CUDA sources, with what bounds each kernel on an H100, are in ``csrc/``.
 
-The fully fused pair, the bidi pair and the conditioned pair have two
-routes by storage dtype. bfloat16, the one the flagship serves and trains
-in, runs the Hopper design of ``csrc/blstm_cluster_fwd.cuh`` and
-``csrc/blstm_cluster_bwd.cuh``: W_hh split over a thread-block cluster and
-resident in shared memory, tensor-core products, the input projection (or
-the copy of the gate inputs xg) off the serial chain; the bidi pair runs its
-gate-input form, the conditioned pair its conditioned form, which forms the
-rows ``xs[b] * aux[b, s]`` where the projection form stages x. Its launch
-geometry comes from :func:`cluster_geometry`, and the weights enter it
-packed per CTA in the tensor cores' fragment order (:func:`_pack_fwd`,
-:func:`_pack_walk`). float32, the tests' and checks' mode, keeps the first
-design (``csrc/blstm_common.cuh``, ``csrc/blstm_bwd_common.cuh``), which
-the other four kernels share.
+The fully fused pair, the bidi pair, the conditioned pair and the spill
+pair have two routes by storage dtype. bfloat16, the one the flagship
+serves and trains in, runs the Hopper design of
+``csrc/blstm_cluster_fwd.cuh`` and ``csrc/blstm_cluster_bwd.cuh``: W_hh
+split over a thread-block cluster and resident in shared memory,
+tensor-core products, the input projection (or the copy of the gate inputs
+xg) off the serial chain; the bidi pair runs its gate-input form, the
+conditioned pair its conditioned form, which forms the rows
+``xs[b] * aux[b, s]`` where the projection form stages x, and the spill
+pair the projection form, whose forward writes the c boundaries and whose
+walk rebuilds c from them. Its launch geometry comes from
+:func:`cluster_geometry`, and the weights enter it packed per CTA in the
+tensor cores' fragment order (:func:`_pack_fwd`, :func:`_pack_walk`).
+float32, the tests' and checks' mode, keeps the first design
+(``csrc/blstm_common.cuh``, ``csrc/blstm_bwd_common.cuh``), which the
+other two kernels share.
 
 Each bidirectional wrapper takes one layer's two directions stacked on a
 leading axis of 2 (forward, reverse). Sequences are (B, T, 2H), the forward direction in
@@ -310,6 +313,15 @@ def blstm_fullfused_spill_bwd_plain(x, w_ih_t, w_hh_t, bias, h, cb, dh):
     ``_ffs_bwd_kernel``: every gate pre-activation from the saved h at once,
     c rebuilt inside each spill block from its stored boundary, the reverse
     walk, the sums."""
+    dgates = _spill_bwd_gates(x, w_ih_t, w_hh_t, bias, h, cb, dh)
+    return (_dx_each_rounded(dgates, w_ih_t, x.dtype),) + _fullfused_sums(
+        x, h, dgates)
+
+
+def _spill_bwd_gates(x, w_ih_t, w_hh_t, bias, h, cb, dh):
+    """The gate gradients (2, B, T, 4H) float32 of the spill backward: c
+    rebuilt in float32 inside each spill block from its boundary, which is
+    read as stored (rounded to the storage dtype)."""
     B, T = x.shape[:2]
     hp = _previous(_directions(h))
     gates = (torch.einsum('btf,dfg->dbtg', x.float(), w_ih_t.float())
@@ -328,10 +340,8 @@ def blstm_fullfused_spill_bwd_plain(x, w_ih_t, w_hh_t, bias, h, cb, dh):
         c = f.sigmoid() * c + i.sigmoid() * gg.tanh()
         for d in range(2):
             cs[d, :, ts[d]] = c[d]
-    dgates = _walk_bwd_core(lambda ts, at: at(gates), w_hh_t, cs, cp,
-                            _directions(dh), _BIDI)
-    return (_dx_each_rounded(dgates, w_ih_t, x.dtype),) + _fullfused_sums(
-        x, h, dgates)
+    return _walk_bwd_core(lambda ts, at: at(gates), w_hh_t, cs, cp,
+                          _directions(dh), _BIDI)
 
 
 def blstm_fullfused_cond_bwd_plain(xs, aux, w_ih_t, w_hh_t, bias, h, c, dh):
@@ -407,12 +417,13 @@ def _fwd_shared(MT, KH, BT, TC, KX, KA=0):
             + 2 * BT * KA)
 
 
-def _walk_shared(MT, KH, U, nact, BT):
+def _walk_shared(MT, KH, U, nact, BT, cache=0):
     """Shared bytes of a walk CTA (``csrc/blstm_cluster_bwd.cuh``): the
     W_hh^T slice, two buffers of the C partials of dh, two steps' split gate
-    gradients and two mbarriers."""
+    gradients and two mbarriers; in the spill form also ``cache`` f32 c
+    values per (unit, row), a block's rebuilt c (``SPILL_BLOCK`` + 1)."""
     return (MT * (KH // 16) * 512 + 8 * nact * U * BT + 8 * BT * (4 * U + 8)
-            + 16)
+            + 16 + 4 * cache * U * BT)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -445,9 +456,10 @@ class ClusterGeometry:
 
 
 #: The kinds of :func:`cluster_geometry`: the forward in its projection,
-#: conditioned and gate-input forms, and the backward's walk (the same in
-#: every form).
-GEOMETRY_KINDS = ('fwd', 'fwd_cond', 'fwd_xg', 'bwd')
+#: conditioned and gate-input forms, the backward's walk (the same in the
+#: fully fused, conditioned and gate-input forms) and the spill form of the
+#: walk, which rebuilds c into shared memory.
+GEOMETRY_KINDS = ('fwd', 'fwd_cond', 'fwd_xg', 'bwd', 'bwd_spill')
 
 
 def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
@@ -455,9 +467,10 @@ def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
     ``blstm_fullfused_cond_fwd`` ('fwd_cond', the conditioned form: rows
     are the B S conditioned rows), of ``blstm_bidi_fwd`` ('fwd_xg', the
     gate-input form) or of the walk of ``blstm_fullfused_bwd``,
-    ``blstm_fullfused_cond_bwd`` and ``blstm_bidi_bwd`` ('bwd') in bf16
-    storage, for ``rows`` rows, input width F (read by the projection
-    forms only) and hidden size H:
+    ``blstm_fullfused_cond_bwd`` and ``blstm_bidi_bwd`` ('bwd') or of
+    ``blstm_fullfused_spill_bwd`` ('bwd_spill', whose walk also holds a
+    spill block's rebuilt c) in bf16 storage, for ``rows`` rows, input
+    width F (read by the projection forms only) and hidden size H:
     a pure function of its arguments. ``slots(cluster, row_tile, chunk,
     threads, shared)`` gives the clusters of the kernel that such a plan
     launches that the card holds at once, or None (an H100 SXM holds 15
@@ -488,7 +501,7 @@ def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
     for C in (8, 16):
         U = 4 * -(-H // (4 * C))
         MT = U // 4
-        if kind != 'bwd' and MT > _FWD_MAX_MTILES:
+        if not kind.startswith('bwd') and MT > _FWD_MAX_MTILES:
             continue
         nact = -(-H // U)
         cluster = 1 << (nact - 1).bit_length()
@@ -500,7 +513,9 @@ def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
             elif kind == 'fwd_xg':
                 plan = _fwd_xg_plan(MT, KH, BT)
             else:
-                plan = _walk_plan(MT, KH, U, nact, BT)
+                plan = _walk_plan(MT, KH, U, nact, BT,
+                                  SPILL_BLOCK + 1 if kind == 'bwd_spill'
+                                  else 0)
             if plan is not None:
                 threads, shared, TC, _ = plan
                 per_wave = ((slots and slots(cluster, BT, TC, threads, shared))
@@ -552,10 +567,11 @@ def _fwd_xg_plan(MT, KH, BT):
     return None
 
 
-def _walk_plan(MT, KH, U, nact, BT):
-    """(threads, shared, 1, 0) of the walk at row tile BT, or None."""
+def _walk_plan(MT, KH, U, nact, BT, cache=0):
+    """(threads, shared, 1, 0) of the walk at row tile BT, or None; cache
+    as for :func:`_walk_shared`."""
     warps = max(min(16, KH // 16), -(-U * BT // (32 * _WALK_EPT)))
-    shared = _walk_shared(MT, KH, U, nact, BT)
+    shared = _walk_shared(MT, KH, U, nact, BT, cache)
     if 32 * warps > _WALK_MAX_THREADS or shared > _MAX_SHARED_BYTES:
         return None
     return 32 * warps, shared, 1, 0
@@ -685,12 +701,14 @@ def _sms(device):
 
 #: The capacity query of the kernel that each (geometry kind, route)
 #: launches: the forward's projection, conditioned or gate-input form, the
-#: walk with dh in bf16 (fully fused, conditioned) or f32 (bidi).
+#: walk with dh in bf16 (fully fused, conditioned) or f32 (bidi), and the
+#: walk's spill form.
 _SLOT_QUERIES = {('fwd', 'fullfused'): 'tssep_cluster_fwd_slots',
                  ('fwd_cond', 'cond'): 'tssep_cond_fwd_slots',
                  ('fwd_xg', 'bidi'): 'tssep_bidi_fwd_slots',
                  ('bwd', 'fullfused'): 'tssep_cluster_walk_slots',
-                 ('bwd', 'bidi'): 'tssep_bidi_walk_slots'}
+                 ('bwd', 'bidi'): 'tssep_bidi_walk_slots',
+                 ('bwd_spill', 'spill'): 'tssep_spill_walk_slots'}
 
 
 @functools.lru_cache(maxsize=256)
@@ -703,7 +721,7 @@ def _cluster_slots(kind, device, cluster, row_tile, chunk, threads, shared,
     n = ctypes.c_int(0)
     query = getattr(_build.library(), _SLOT_QUERIES[kind, route])
     with torch.cuda.device(device):
-        if kind == 'bwd':
+        if kind.startswith('bwd'):
             err = query(cluster, row_tile, threads, shared, ctypes.byref(n))
         else:
             err = query(cluster, row_tile, chunk, threads, shared,
@@ -714,7 +732,8 @@ def _cluster_slots(kind, device, cluster, row_tile, chunk, threads, shared,
 @functools.lru_cache(maxsize=64)
 def _geometry(kind, rows, F, H, device, route='fullfused'):
     """:func:`cluster_geometry` for a launch on ``device`` of the kernel
-    that ``kind`` and ``route`` ('fullfused', 'cond' or 'bidi') name."""
+    that ``kind`` and ``route`` ('fullfused', 'cond', 'bidi' or 'spill')
+    name."""
     return cluster_geometry(
         kind, rows, F, H, _sms(device),
         slots=functools.partial(_cluster_slots, kind, device, route=route))
@@ -1072,24 +1091,30 @@ def blstm_fullfused_bwd(x, w_ih_t, w_hh_t, bias, h, c, dh):
 FULLFUSED_BWD_PARTS = {'gates': 1, 'walk': 2, 'wgrad': 4, 'dx': 8}
 
 
+def _fullfused_bwd_buffers(x, H):
+    """The bf16 fully fused (or spill) backward's workspace and outputs for
+    x (B, T, F): ``(dg, dw, dx)``, the f32 gate gradients (2, B, T, 4H),
+    [dW_ih^T; dW_hh^T; db] (2, F + H + 1, 4H) and dx (B, T, F), which also
+    holds the weight sums' split partials."""
+    B, T, F = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty(2, B, T, 4 * H, **f32),
+            torch.empty(2, F + H + 1, 4 * H, **f32),
+            torch.empty(B, T, F, **f32))
+
+
 def _fullfused_bwd_cluster(x, w_ih_t, w_hh_t, bias, h, c, dh, parts=15,
                            out=None):
     """The bf16 route of :func:`blstm_fullfused_bwd` on a CUDA device;
     ``parts`` picks its launches (:data:`FULLFUSED_BWD_PARTS`) and ``out``
-    gives the workspace and outputs ``(dg, dw, dx)`` to reuse, so that each
-    launch can be timed alone."""
+    gives the buffers of :func:`_fullfused_bwd_buffers` to reuse, so that
+    each launch can be timed alone."""
     B, T, F = x.shape
     H = w_hh_t.shape[1]
     _check_launch(x, H, (w_ih_t, w_hh_t, bias, h, c))
     geo = _geometry('bwd', B, F, H, x.device)
     wp = _pack_walk(w_hh_t, geo, H)
-    if out is None:
-        f32 = dict(dtype=torch.float32, device=x.device)
-        out = (torch.empty(2, B, T, 4 * H, **f32),       # workspace
-               # [dW_ih^T; dW_hh^T; db]
-               torch.empty(2, F + H + 1, 4 * H, **f32),
-               torch.empty(B, T, F, **f32))
-    dg, dw, dx = out
+    dg, dw, dx = _fullfused_bwd_buffers(x, H) if out is None else out
     with torch.cuda.device(x.device):
         err = _build.library().tssep_blstm_fullfused_bwd_cluster(
             x.data_ptr(), x.stride(0), x.stride(1), F, w_ih_t.data_ptr(),
@@ -1334,6 +1359,12 @@ def blstm_fullfused_spill_fwd(x, w_ih_t, w_hh_t, bias, *,
     dtype, ``cb[d, k]`` the c carry of direction d before its walk's step
     ``k SPILL_BLOCK`` (``cb[:, 0]`` is zero); ``cb`` is None unless
     ``with_boundaries``.
+
+    On a CUDA device, bfloat16 storage runs the clustered Hopper kernel of
+    :func:`blstm_fullfused_fwd` (``csrc/blstm_cluster_fwd.cuh``), whose
+    consumers write the boundaries where they update c: its h has the bits
+    of :func:`blstm_fullfused_fwd`'s. float32 storage, the tests' and
+    checks' mode, runs the first design (``csrc/blstm_common.cuh``).
     """
     _check_stream_input('x', x)
     B, T, F = x.shape
@@ -1344,10 +1375,29 @@ def blstm_fullfused_spill_fwd(x, w_ih_t, w_hh_t, bias, *,
     if x.device.type == 'cpu':
         return blstm_fullfused_spill_fwd_plain(
             x, w_ih_t, w_hh_t, bias, with_boundaries=with_boundaries)
-    bt = _launch_tile(x, H, 2 * H + F, (w_ih_t, w_hh_t, bias))
+    route = (_fullfused_spill_fwd_cluster if x.dtype == torch.bfloat16
+             else _fullfused_spill_fwd_first)
+    out = route(x, w_ih_t, w_hh_t, bias, with_boundaries)
+    blstm_fullfused_spill_fwd.launches += 1
+    return out
+
+
+def _spill_outputs(x, H, with_boundaries):
+    B, T = x.shape[:2]
     h, _ = _outputs(x, H, False)
     cb = (torch.empty(_boundary_shape(B, T, H), dtype=x.dtype,
                       device=x.device) if with_boundaries else None)
+    return h, cb
+
+
+def _fullfused_spill_fwd_first(x, w_ih_t, w_hh_t, bias, with_boundaries):
+    """The first design of :func:`blstm_fullfused_spill_fwd` on a CUDA
+    device (``csrc/blstm_common.cuh``), in either storage dtype: the route
+    of float32."""
+    B, T, F = x.shape
+    H = w_hh_t.shape[1]
+    bt = _launch_tile(x, H, 2 * H + F, (w_ih_t, w_hh_t, bias))
+    h, cb = _spill_outputs(x, H, with_boundaries)
     with torch.cuda.device(x.device):
         err = _build.library().tssep_blstm_fullfused_spill_fwd(
             x.data_ptr(), x.stride(0), x.stride(1), F, w_ih_t.data_ptr(),
@@ -1356,7 +1406,27 @@ def blstm_fullfused_spill_fwd(x, w_ih_t, w_hh_t, bias, *,
             h.stride(1), B, T, H, SPILL_BLOCK, int(x.dtype == torch.bfloat16),
             bt, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, 'blstm_fullfused_spill_fwd')
-    blstm_fullfused_spill_fwd.launches += 1
+    return h, cb
+
+
+def _fullfused_spill_fwd_cluster(x, w_ih_t, w_hh_t, bias, with_boundaries):
+    """The bf16 route of :func:`blstm_fullfused_spill_fwd` on a CUDA
+    device: the fully fused forward's geometry and packing (kind 'fwd')."""
+    B, T, F = x.shape
+    H = w_hh_t.shape[1]
+    _check_launch(x, H, (w_ih_t, w_hh_t, bias))
+    geo = _geometry('fwd', B, F, H, x.device)
+    wih_p, whh_p, bias_p = _pack_fwd(w_ih_t, w_hh_t, bias, geo, H)
+    h, cb = _spill_outputs(x, H, with_boundaries)
+    with torch.cuda.device(x.device):
+        err = _build.library().tssep_blstm_fullfused_spill_fwd_cluster(
+            x.data_ptr(), x.stride(0), x.stride(1), F, wih_p.data_ptr(),
+            whh_p.data_ptr(), bias_p.data_ptr(), h.data_ptr(),
+            cb.data_ptr() if with_boundaries else None, h.stride(0),
+            h.stride(1), B, T, H, SPILL_BLOCK, geo.cluster, geo.units,
+            geo.active, geo.row_tile, geo.chunk, geo.k_block,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, 'blstm_fullfused_spill_fwd')
     return h, cb
 
 
@@ -1372,6 +1442,12 @@ def blstm_fullfused_spill_bwd(x, w_ih_t, w_hh_t, bias, h, cb, dh):
     (2, ceil(T / SPILL_BLOCK), B, H), the forward's outputs; dh (B, T, 2H),
     the cotangent of h in the storage dtype. Returns what
     :func:`blstm_fullfused_bwd` returns.
+
+    On a CUDA device, bfloat16 storage runs the Hopper design of
+    :func:`blstm_fullfused_bwd` (``csrc/blstm_cluster_bwd.cuh``) with the
+    walk in its spill form, which rebuilds each spill block's c itself
+    (geometry kind 'bwd_spill'); float32 storage, the tests' and checks'
+    mode, runs the first design (``csrc/blstm_fullfused_spill_bwd.cu``).
     """
     _check_stream_input('x', x)
     B, T, F = x.shape
@@ -1387,6 +1463,19 @@ def blstm_fullfused_spill_bwd(x, w_ih_t, w_hh_t, bias, h, cb, dh):
                                                dh)
     if dh.stride(-1) != 1:
         raise ValueError('the last axis of dh must be contiguous')
+    route = (_fullfused_spill_bwd_cluster if x.dtype == torch.bfloat16
+             else _fullfused_spill_bwd_first)
+    out = route(x, w_ih_t, w_hh_t, bias, h, cb, dh)
+    blstm_fullfused_spill_bwd.launches += 1
+    return out
+
+
+def _fullfused_spill_bwd_first(x, w_ih_t, w_hh_t, bias, h, cb, dh):
+    """The first design of :func:`blstm_fullfused_spill_bwd` on a CUDA
+    device (``csrc/blstm_fullfused_spill_bwd.cu``), in either storage
+    dtype: the route of float32."""
+    B, T, F = x.shape
+    H = w_hh_t.shape[1]
     # the walk keeps dh, dc and two steps' gate gradients per row
     bt = _launch_tile(x, H, 10 * H, (w_ih_t, w_hh_t, bias, h, cb))
     w_ih = w_ih_t.transpose(1, 2).contiguous()
@@ -1406,7 +1495,37 @@ def blstm_fullfused_spill_bwd(x, w_ih_t, w_hh_t, bias, h, cb, dh):
             B, T, H, SPILL_BLOCK, int(x.dtype == torch.bfloat16), bt,
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, 'blstm_fullfused_spill_bwd')
-    blstm_fullfused_spill_bwd.launches += 1
+    return dx, dw[:, :F], dw[:, F:F + H], dw[:, F + H]
+
+
+#: The launches of the bf16 spill backward, in order, by their ``parts``
+#: bit: those of the fully fused backward, the walk in its spill form.
+SPILL_BWD_PARTS = FULLFUSED_BWD_PARTS
+
+
+def _fullfused_spill_bwd_cluster(x, w_ih_t, w_hh_t, bias, h, cb, dh,
+                                 parts=15, out=None):
+    """The bf16 route of :func:`blstm_fullfused_spill_bwd` on a CUDA device;
+    ``parts`` picks its launches (:data:`SPILL_BWD_PARTS`) and ``out``
+    gives the buffers of :func:`_fullfused_bwd_buffers` to reuse, so that
+    each launch can be timed alone."""
+    B, T, F = x.shape
+    H = w_hh_t.shape[1]
+    _check_launch(x, H, (w_ih_t, w_hh_t, bias, h, cb))
+    geo = _geometry('bwd_spill', B, F, H, x.device, 'spill')
+    wp = _pack_walk(w_hh_t, geo, H)
+    dg, dw, dx = _fullfused_bwd_buffers(x, H) if out is None else out
+    with torch.cuda.device(x.device):
+        err = _build.library().tssep_blstm_fullfused_spill_bwd_cluster(
+            x.data_ptr(), x.stride(0), x.stride(1), F, w_ih_t.data_ptr(),
+            w_hh_t.data_ptr(), bias.data_ptr(), wp.data_ptr(), h.data_ptr(),
+            h.stride(0), h.stride(1), cb.data_ptr(), dh.data_ptr(),
+            dh.stride(0), dh.stride(1), dg.data_ptr(), dw.data_ptr(),
+            dx.data_ptr(), B, T, H, SPILL_BLOCK, geo.cluster, geo.units,
+            geo.active, geo.row_tile, geo.threads,
+            wgrad_splits(B * T, F, H, _sms(x.device)), parts,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, 'blstm_fullfused_spill_bwd')
     return dx, dw[:, :F], dw[:, F:F + H], dw[:, F + H]
 
 

@@ -11,6 +11,13 @@
 //   Steps 1-3 as the projection form's over the B S rows; step 4 is dcond
 //   (DcondOp), which blstm_fullfused_cond_bwd.cu then splits into dx and
 //   daux.
+// - spill: the backward of the spill forward, from h and the c carry
+//   entering every spill'th step instead of the c sequence. Replaces, with
+//   blstm_fullfused_spill_bwd.cu, the TPU kernel `_ffs_bwd_kernel` (:1280).
+//   The projection form's four launches, the walk in its spill form
+//   (template parameter SPILL): it rebuilds each spill block's c from the
+//   block's boundary and the pre-activations of step 1 as it enters the
+//   block.
 // - gate inputs: the backward of the walk from gate inputs xg. Replaces,
 //   with blstm_bidi_bwd.cu, the TPU kernel `_bi_bwd_kernel` (:424). Three
 //   launches (1-3): the gate product sums over h_prev alone (K = H) and adds
@@ -55,8 +62,9 @@
 //    rounds once after the sum over the speakers.
 //
 // The walk's geometry (C, U, BT, threads) comes from `cluster_geometry` in
-// kernels/blstm.py (kind 'bwd', for both forms); `walk_shared_bytes` is its
-// `_walk_shared`.
+// kernels/blstm.py (kind 'bwd', for every form but spill, whose kind
+// 'bwd_spill' adds the rebuilt c to its shared memory); `walk_shared_bytes`
+// is its `_walk_shared`.
 #pragma once
 
 #include <type_traits>
@@ -456,20 +464,36 @@ struct WalkArgs {
   __nv_bfloat16* dxg;       // gate-input form: (B, T, 8H) strides (g_sb, g_st, 1); else null
   long long g_sb, g_st;
   int B, T, H, U, nact, KH;
+  // spill form (no c): (2, ceil(T / spill), B, H) contiguous, the c carry
+  // entering every spill'th step of each walk
+  const __nv_bfloat16* cb = nullptr;
+  int spill = 0;
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 constexpr int kWalkMaxThreads = 512, kWalkEpt = 4;
+constexpr int kSpillMax = 8;  // the spill form's longest block
 
-inline size_t walk_shared_bytes(int MT, int KH, int U, int nact, int BT) {
+// The walk's shared bytes; `cache` c values per (unit, row) in the spill
+// form (spill + 1: a block's entering carry and its c after each step), 0
+// otherwise.
+inline size_t walk_shared_bytes(int MT, int KH, int U, int nact, int BT, int cache = 0) {
   return (size_t)MT * (KH / 16) * 512 + (size_t)8 * nact * U * BT + (size_t)8 * BT * (4 * U + 8) +
-         16;
+         16 + (size_t)4 * cache * U * BT;
 }
 
 // DH: the type of dh, bf16 (projection form) or float (gate-input form).
-template <int NB, typename DH>
+// SPILL: c is not read but rebuilt, entering each spill block of the walk
+// (its last step, the walk going backward), from the block's boundary in cb
+// and the pre-activations in dg, which the walk has not yet overwritten
+// there: c = sigmoid(f) c + sigmoid(i) tanh(g) in f32 through the block's
+// steps, as the TPU kernel's phase 2 (tssep_tpu/kernels/blstm.py:1322-1332).
+// Each thread rebuilds its own (unit, row) elements into its own slots of a
+// shared cache, so the rebuild needs no barrier, no cluster traffic and no
+// workspace.
+template <int NB, typename DH, bool SPILL = false>
 __global__ void __launch_bounds__(kWalkMaxThreads, 1) cluster_walk_kernel(const WalkArgs a) {
   constexpr int BT = NB * 8;
   const int cta = (int)cluster_rank();
@@ -490,6 +514,10 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) cluster_walk_kernel(const 
   // (2 steps, hi and lo, BT, MS): the split gate gradients
   __nv_bfloat16* bst = reinterpret_cast<__nv_bfloat16*>(recv + 2 * a.nact * U * BT);
   uint64_t* rbar = reinterpret_cast<uint64_t*>(bst + 4 * BT * MS);
+  // spill form: (spill + 1, U BT) the c values of the current block, slot j
+  // c after the block's step j - 1 (slot 0 its boundary), element e of
+  // this CTA at e
+  float* ccache = reinterpret_cast<float*>(rbar + 2);
 
   const bool active = cta < a.nact;
   if (active) {
@@ -525,9 +553,11 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) cluster_walk_kernel(const 
           const float* g = a.dg + (((size_t)dir * a.B + b) * a.T + t) * G + ug;
 #pragma unroll
           for (int k = 0; k < 4; ++k) pre[i][k] = g[k * H];
-          const long long so = b * a.s_sb + dir * H + ug;
-          cv[i] = __bfloat162float(a.c[so + t * a.s_st]);
-          cpv[i] = s > 0 ? __bfloat162float(a.c[so + tp * a.s_st]) : 0.f;
+          if constexpr (!SPILL) {
+            const long long so = b * a.s_sb + dir * H + ug;
+            cv[i] = __bfloat162float(a.c[so + t * a.s_st]);
+            cpv[i] = s > 0 ? __bfloat162float(a.c[so + tp * a.s_st]) : 0.f;
+          }
           dhv[i] = to_f32(dh[b * a.d_sb + t * a.d_st + dir * H + ug]);
         }
       }
@@ -539,9 +569,56 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) cluster_walk_kernel(const 
     const int own = H - U * cta < U ? H - U * cta : U;
     const uint32_t rbytes = (uint32_t)a.nact * own * BT * 4;
 
+    const int UB = U * BT;
+    const int nblk = SPILL ? (a.T + a.spill - 1) / a.spill : 0;
+
     for (int it = 0; it < a.T; ++it) {
       const int s = a.T - 1 - it;  // walk step, walked backward
       const int t = rev ? a.T - 1 - s : s;
+      if constexpr (SPILL) {
+        // before the wait for the peers' partials, which it does not need
+        const int s0 = s - s % a.spill;
+        if (s == a.T - 1 || s - s0 == a.spill - 1) {
+          const int n = s - s0 + 1;  // the block's steps (a short last block has fewer)
+          // one element at a time, every load of its block issued before
+          // the serial update uses the first: one L2 latency a block, not
+          // one a step (the element's numbers are recomputed, so that the
+          // register arrays above keep constant indices)
+#pragma unroll 1
+          for (int i = 0; i < kWalkEpt; ++i) {
+            const int e = tid + i * nthr, u = e % U, b = b0 + e / U, ug = U * cta + u;
+            if (e >= UB || ug >= H || b >= a.B) continue;
+            const float* g = a.dg + ((size_t)dir * a.B + b) * a.T * G + ug;
+            float pf[kSpillMax], pi[kSpillMax], pg[kSpillMax];
+#pragma unroll
+            for (int j = 0; j < kSpillMax; ++j) {
+              if (j < n) {
+                const float* gj = g + (size_t)(rev ? a.T - 1 - s0 - j : s0 + j) * G;
+                pf[j] = gj[H];
+                pi[j] = gj[0];
+                pg[j] = gj[2 * H];
+              }
+            }
+            float cr = __bfloat162float(
+                a.cb[(((size_t)dir * nblk + s0 / a.spill) * a.B + b) * H + ug]);
+            ccache[e] = cr;
+#pragma unroll
+            for (int j = 0; j < kSpillMax; ++j) {
+              if (j < n) {
+                cr = sigmoid(pf[j]) * cr + sigmoid(pi[j]) * tanhf(pg[j]);
+                ccache[(j + 1) * UB + e] = cr;
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kWalkEpt; ++i) {
+          if (!ev[i]) continue;
+          const int e = tid + i * nthr;
+          cv[i] = ccache[(s - s0 + 1) * UB + e];
+          cpv[i] = ccache[(s - s0) * UB + e];
+        }
+      }
       // dh carried from the later step: the C partials, added in CTA order
       float carry[kWalkEpt];
 #pragma unroll
@@ -640,26 +717,129 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) cluster_walk_kernel(const 
 
 using WalkKernel = void (*)(WalkArgs);
 
-// The instance of cluster_walk_kernel for row tile BT and dh of type DH, or
-// null.
-template <typename DH>
+// The instance of cluster_walk_kernel for row tile BT, dh of type DH and
+// the spill form or not, or null.
+template <typename DH, bool SPILL = false>
 inline WalkKernel walk_kernel(int BT) {
-  if (BT == 8) return cluster_walk_kernel<1, DH>;
-  if (BT == 16) return cluster_walk_kernel<2, DH>;
-  if (BT == 24) return cluster_walk_kernel<3, DH>;
-  if (BT == 32) return cluster_walk_kernel<4, DH>;
+  if (BT == 8) return cluster_walk_kernel<1, DH, SPILL>;
+  if (BT == 16) return cluster_walk_kernel<2, DH, SPILL>;
+  if (BT == 24) return cluster_walk_kernel<3, DH, SPILL>;
+  if (BT == 32) return cluster_walk_kernel<4, DH, SPILL>;
   return nullptr;
 }
 
-template <typename DH>
+template <typename DH, bool SPILL = false>
 inline int cluster_walk(const WalkArgs& a, int C, int BT, int threads, cudaStream_t stream) {
   const int MT = a.U / 4;
   if (threads > kWalkMaxThreads || threads % 32 != 0 || a.U % 4 != 0 || a.nact > C ||
-      a.U * BT > kWalkEpt * threads)
+      a.U * BT > kWalkEpt * threads ||
+      (SPILL && (a.cb == nullptr || a.spill < 1 || a.spill > kSpillMax)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = walk_shared_bytes(MT, a.KH, a.U, a.nact, BT);
+  const size_t smem = walk_shared_bytes(MT, a.KH, a.U, a.nact, BT, SPILL ? a.spill + 1 : 0);
   const dim3 grid(C, (a.B + BT - 1) / BT, 2);
-  return launch_clusters(walk_kernel<DH>(BT), grid, threads, smem, C, stream, a);
+  return launch_clusters(walk_kernel<DH, SPILL>(BT), grid, threads, smem, C, stream, a);
+}
+
+// The projection form's four launches on one stream (1 gates, 2 walk,
+// 4 weight sums, 8 dx: the bits of `parts`), for the fully fused backward
+// (blstm_fullfused_bwd.cu: the walk reads the c sequence c) and, with SPILL,
+// the spill backward (blstm_fullfused_spill_bwd.cu: the walk rebuilds c
+// from the boundaries cb, every spill'th step). Arguments as those entry
+// points document them. Returns a cudaError_t.
+template <bool SPILL>
+int projection_backward(const void* x, long long x_sb, long long x_st, int F,
+                        const void* w_ih_t, const void* w_hh_t, const void* bias, const void* wp,
+                        const void* h, const void* c, long long s_sb, long long s_st,
+                        const void* cb, int spill, const void* dh, long long d_sb,
+                        long long d_st, void* dg, void* dw, void* dx, int B, int T, int H, int C,
+                        int U, int nact, int bt, int threads, int splits, int parts,
+                        cudaStream_t stream) {
+  const long long rows = (long long)B * T;
+  Rows r;
+  r.x = static_cast<const __nv_bfloat16*>(x);
+  r.x_sb = x_sb;
+  r.x_st = x_st;
+  r.h = static_cast<const __nv_bfloat16*>(h);
+  r.s_sb = s_sb;
+  r.s_st = s_st;
+  r.B = B;
+  r.T = T;
+  r.F = F;
+  r.H = H;
+  r.rows = rows;
+  r.divT = make_fastdiv((uint32_t)T);
+  r.aux = nullptr;
+  r.divS = make_fastdiv(1);
+  if (splits < 1 || (long long)(splits - 1) * 2 * (F + H + 1) * 4 * H > rows * F)
+    return (int)cudaErrorInvalidValue;
+  int err = 0;
+  if (parts & 1) {
+    GatesOp<false> op;
+    op.rows = r;
+    op.w_ih_t = static_cast<const __nv_bfloat16*>(w_ih_t);
+    op.w_hh_t = static_cast<const __nv_bfloat16*>(w_hh_t);
+    op.bias = static_cast<const float*>(bias);
+    op.dg = static_cast<float*>(dg);
+    op.M = rows;
+    op.N = 4 * H;
+    op.K = F + H;
+    err = launch_gemm(op, (int)rows, 4 * H, 2, stream);
+    if (err != 0) return err;
+  }
+  if (parts & 2) {
+    WalkArgs a;
+    a.wp = static_cast<const uint4*>(wp);
+    a.dg = static_cast<float*>(dg);
+    a.c = static_cast<const __nv_bfloat16*>(c);
+    a.s_sb = s_sb;
+    a.s_st = s_st;
+    a.cb = static_cast<const __nv_bfloat16*>(cb);
+    a.spill = spill;
+    a.dh = dh;
+    a.d_sb = d_sb;
+    a.d_st = d_st;
+    a.dxg = nullptr;
+    a.g_sb = a.g_st = 0;
+    a.B = B;
+    a.T = T;
+    a.H = H;
+    a.U = U;
+    a.nact = nact;
+    a.KH = (H + 15) / 16 * 16;
+    err = cluster_walk<__nv_bfloat16, SPILL>(a, C, bt, threads, stream);
+    if (err != 0) return err;
+  }
+  if (parts & 4) {
+    WgradOp<> op;
+    op.rows = r;
+    op.dg = static_cast<const float*>(dg);
+    op.out = static_cast<float*>(dw);
+    op.ws = static_cast<float*>(dx);  // dx is written only after the sums
+    op.K = rows;
+    op.kps = ((rows + splits - 1) / splits + kGK - 1) / kGK * kGK;
+    op.M = F + H + 1;
+    op.N = 4 * H;
+    err = launch_gemm(op, F + H + 1, 4 * H, 2 * splits, stream);
+    if (err != 0) return err;
+    if (splits > 1) {
+      const long long n = 2LL * op.M * op.N;
+      splitk_add_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+          static_cast<float*>(dw), static_cast<const float*>(dx), n, splits - 1);
+      err = (int)cudaGetLastError();
+      if (err != 0) return err;
+    }
+  }
+  if (parts & 8) {
+    DxOp op;
+    op.dg = static_cast<const float*>(dg);
+    op.w_ih_t = static_cast<const __nv_bfloat16*>(w_ih_t);
+    op.dx = static_cast<float*>(dx);
+    op.M = rows;
+    op.N = F;
+    op.K = 4 * H;
+    err = launch_gemm(op, (int)rows, F, 1, stream);
+  }
+  return err;
 }
 
 }  // namespace tc

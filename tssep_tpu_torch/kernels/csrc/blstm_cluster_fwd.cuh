@@ -12,6 +12,10 @@
 // - gate inputs (XG true): the walk from gate inputs xg (B, T, 8H) computed
 //   outside. Replaces, with blstm_bidi_fwd.cu, the TPU kernel
 //   `_bi_fwd_kernel` (tssep_tpu/kernels/blstm.py:374).
+// The projection form also runs the spill forward (blstm_fullfused_spill_fwd.cu,
+// replacing `_ffs_fwd_kernel` :1228): given a boundary buffer (FwdArgs::cb)
+// instead of c, the consumers write the c carry entering every spill'th step
+// of their walk where they update c; without one it is the fully fused launch.
 //
 // What bounds the layer on an H100 is its serial chain: T steps, each a
 // product with W_hh that needs the previous step's h. The design keeps that
@@ -80,6 +84,10 @@ struct FwdArgs {
   __nv_bfloat16* h_out;    // (B, T, 2H), strides (o_sb, o_st, 1)
   __nv_bfloat16* c_out;    // the same, or null
   long long o_sb, o_st;
+  // spill form: (2, ceil(T / spill), B, H) contiguous, the c carry
+  // entering every spill'th step of each walk; or null
+  __nv_bfloat16* cb = nullptr;
+  int spill = 0;
   int B, T, F, H;          // B: the layer's rows
   int U, nact;             // units per CTA; CTAs that own units
   int KH, KF, KX;          // H and F rounded up to 16; F's block per staging
@@ -173,6 +181,17 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 1) cluster_fwd_kernel(const Fw
     float creg[NB];
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) creg[nb] = 0.f;
+    // spill form: slot k of cb is c after walk step k spill - 1 (slot 0 the
+    // zero state), each (unit, row) written by the lane that updates it
+    const int nblk = a.cb != nullptr ? (a.T + a.spill - 1) / a.spill : 0;
+    __nv_bfloat16* cbd = a.cb + (size_t)dir * nblk * a.B * a.H;
+    if (a.cb != nullptr && u < a.H) {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int b = b0 + nb * 8 + 2 * tq + (hi ? 1 : 0);
+        if (b < a.B) cbd[(size_t)b * a.H + u] = __float2bfloat16(0.f);
+      }
+    }
 
     for (int s = 0; s < a.T; ++s) {
       const int t = rev ? a.T - 1 - s : s;
@@ -236,6 +255,8 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 1) cluster_fwd_kernel(const Fw
           const long long o = b * a.o_sb + t * a.o_st + dir * a.H + u;
           a.h_out[o] = hq;
           if (a.c_out != nullptr) a.c_out[o] = __float2bfloat16(c);
+          if (a.cb != nullptr && (s + 1) % a.spill == 0 && s + 1 < a.T)
+            cbd[((size_t)((s + 1) / a.spill) * a.B + b) * a.H + u] = __float2bfloat16(c);
         }
         // units u0 .. u0 + 3 of row n, from the lanes with the same tq and hi
         const uint32_t bits = __bfloat16_as_ushort(hq);

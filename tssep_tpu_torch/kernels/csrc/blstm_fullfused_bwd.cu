@@ -61,93 +61,11 @@ extern "C" int tssep_blstm_fullfused_bwd_cluster(
     const void* w_hh_t, const void* bias, const void* wp, const void* h, const void* c,
     long long s_sb, long long s_st, const void* dh, long long d_sb, long long d_st, void* dg,
     void* dw, void* dx, int B, int T, int H, int C, int U, int nact, int bt, int threads,
-    int splits, int parts, void* stream_) {
-  using namespace tssep::tc;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const long long rows = (long long)B * T;
-  Rows r;
-  r.x = static_cast<const __nv_bfloat16*>(x);
-  r.x_sb = x_sb;
-  r.x_st = x_st;
-  r.h = static_cast<const __nv_bfloat16*>(h);
-  r.s_sb = s_sb;
-  r.s_st = s_st;
-  r.B = B;
-  r.T = T;
-  r.F = F;
-  r.H = H;
-  r.rows = rows;
-  r.divT = make_fastdiv((uint32_t)T);
-  r.aux = nullptr;
-  r.divS = make_fastdiv(1);
-  if (splits < 1 || (long long)(splits - 1) * 2 * (F + H + 1) * 4 * H > rows * F)
-    return (int)cudaErrorInvalidValue;
-  int err = 0;
-  if (parts & 1) {
-    GatesOp<false> op;
-    op.rows = r;
-    op.w_ih_t = static_cast<const __nv_bfloat16*>(w_ih_t);
-    op.w_hh_t = static_cast<const __nv_bfloat16*>(w_hh_t);
-    op.bias = static_cast<const float*>(bias);
-    op.dg = static_cast<float*>(dg);
-    op.M = rows;
-    op.N = 4 * H;
-    op.K = F + H;
-    err = launch_gemm(op, (int)rows, 4 * H, 2, stream);
-    if (err != 0) return err;
-  }
-  if (parts & 2) {
-    WalkArgs a;
-    a.wp = static_cast<const uint4*>(wp);
-    a.dg = static_cast<float*>(dg);
-    a.c = static_cast<const __nv_bfloat16*>(c);
-    a.s_sb = s_sb;
-    a.s_st = s_st;
-    a.dh = dh;
-    a.d_sb = d_sb;
-    a.d_st = d_st;
-    a.dxg = nullptr;
-    a.g_sb = a.g_st = 0;
-    a.B = B;
-    a.T = T;
-    a.H = H;
-    a.U = U;
-    a.nact = nact;
-    a.KH = (H + 15) / 16 * 16;
-    err = cluster_walk<__nv_bfloat16>(a, C, bt, threads, stream);
-    if (err != 0) return err;
-  }
-  if (parts & 4) {
-    WgradOp<> op;
-    op.rows = r;
-    op.dg = static_cast<const float*>(dg);
-    op.out = static_cast<float*>(dw);
-    op.ws = static_cast<float*>(dx);  // dx is written only after the sums
-    op.K = rows;
-    op.kps = ((rows + splits - 1) / splits + kGK - 1) / kGK * kGK;
-    op.M = F + H + 1;
-    op.N = 4 * H;
-    err = launch_gemm(op, F + H + 1, 4 * H, 2 * splits, stream);
-    if (err != 0) return err;
-    if (splits > 1) {
-      const long long n = 2LL * op.M * op.N;
-      splitk_add_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-          static_cast<float*>(dw), static_cast<const float*>(dx), n, splits - 1);
-      err = (int)cudaGetLastError();
-      if (err != 0) return err;
-    }
-  }
-  if (parts & 8) {
-    DxOp op;
-    op.dg = static_cast<const float*>(dg);
-    op.w_ih_t = static_cast<const __nv_bfloat16*>(w_ih_t);
-    op.dx = static_cast<float*>(dx);
-    op.M = rows;
-    op.N = F;
-    op.K = 4 * H;
-    err = launch_gemm(op, (int)rows, F, 1, stream);
-  }
-  return err;
+    int splits, int parts, void* stream) {
+  return tssep::tc::projection_backward<false>(
+      x, x_sb, x_st, F, w_ih_t, w_hh_t, bias, wp, h, c, s_sb, s_st, nullptr, 0, dh, d_sb, d_st,
+      dg, dw, dx, B, T, H, C, U, nact, bt, threads, splits, parts,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Clusters of C CTAs of the walk at row tile bt, each of `threads` threads

@@ -5,9 +5,26 @@
 // computes its function: dx (each direction rounded to the storage type,
 // the two summed in f32), dW_ih, dW_hh and db.
 //
-// The TPU kernel walked spill blocks in a sequential grid, four phases per
-// block in VMEM. Phases 1 and 4 are parallel over every (row, step), so on
-// Hopper each is one grid over all B T rows; four steps on one stream:
+// Bound on an H100 at birnn0 of a training step at batch 256 (2048 rows,
+// T 316, F 513, H 300): operations, those of the fully fused backward (the
+// gate pre-activations on storage-type operands, 2.5 TFLOP; dh, the weight
+// sums and dx 5.1 TFLOP, which the bf16 route runs as 10.2 TFLOP of exact
+// bf16 products, the f32 gate gradients split in two terms).
+//
+// Two routes, by storage type:
+// - bf16, the trained one: the fully fused backward's Hopper design
+//   (blstm_cluster_bwd.cuh), the same four launches, with the walk in its
+//   spill form: it reads no c but rebuilds c entering each spill block from
+//   the block's boundary and the gate pre-activations of the first launch,
+//   each thread for its own (unit, row) elements, into shared memory. So
+//   the route needs no cells workspace and no launch more than the fully
+//   fused backward.
+// - f32, the tests' and checks' mode: the first design, below.
+//
+// The first design. The TPU kernel walked spill blocks in a sequential
+// grid, four phases per block in VMEM. Phases 1 and 4 are parallel over
+// every (row, step), so on Hopper each is one grid over all B T rows; four
+// steps on one stream:
 // 1. gates_kernel: every gate pre-activation at once, a tiled product
 //    [x | h_prev | 1] [W_ih^T; W_hh^T; b] into an f32 workspace
 //    (2, B, T, 4H). h_prev is the saved h, in the storage type, as the
@@ -23,14 +40,11 @@
 //    backward's walk streams three. The dgates overwrite the gate workspace.
 // 4. the fully fused backward's sums (blstm_bwd_common.cuh): wgrad_kernel
 //    for [dW_ih^T; dW_hh^T; db] and dx_kernel for dx.
-// No atomics: the same bits every run.
-//
-// Bound on an H100 at birnn0 of a training step at batch 256 (2048 rows,
-// T 316, F 513, H 300): operations, those of the fully fused backward (the
-// gate pre-activations on storage-type operands, 2.5 TFLOP; dh, the weight
-// sums and dx on f32 ones, 5.1 TFLOP): 79 ms at 67 TFLOP/s. Every product
-// runs on the CUDA cores in f32 here.
+// Every product runs on the CUDA cores in f32 there (79 ms of operations
+// at 67 TFLOP/s for the shape above).
+// No atomics in either route: the same bits every run.
 #include "blstm_bwd_common.cuh"
+#include "blstm_cluster_bwd.cuh"
 
 namespace tssep {
 namespace {
@@ -299,4 +313,37 @@ extern "C" int tssep_blstm_fullfused_spill_bwd(
   return tssep::spill_backward<float>(bt, x, x_sb, x_st, F, w_ih_t, w_ih, bias, w_hh_t, w_hh, h,
                                       s_sb, s_st, cb, dh, d_sb, d_st, gates, cells, dw, dx, B, T,
                                       H, spill, st);
+}
+
+// The bf16 route. x (B, T, F) with strides (x_sb, x_st, 1); w_ih_t
+// (2, F, 4H) and w_hh_t (2, H, 4H) bf16; bias (2, 4H) f32; wp: the CTA
+// slices of W_hh^T in the walk's fragment order (kernels/blstm.py
+// `_pack_walk`); h (B, T, 2H) bf16 with strides (s_sb, s_st, 1); cb
+// (2, ceil(T / spill), B, H) bf16 contiguous; dh (B, T, 2H) bf16 with
+// strides (d_sb, d_st, 1). Writes the workspace dg (2, B, T, 4H) f32, dw
+// (2, F + H + 1, 4H) f32 = [dW_ih^T; dW_hh^T; db] and dx (B, T, F) f32.
+// The walk runs in clusters of C CTAs of `threads` threads, U units each,
+// `nact` of them owning any, bt rows a tile (kernels/blstm.py geometry kind
+// 'bwd_spill'). The weight sums cut the B T rows into `splits` ranges
+// (their partials in dx's memory). `parts` picks the launches (1 gates,
+// 2 walk, 4 weight sums, 8 dx; 15 all), so that each can be timed alone.
+// Returns a cudaError_t.
+extern "C" int tssep_blstm_fullfused_spill_bwd_cluster(
+    const void* x, long long x_sb, long long x_st, int F, const void* w_ih_t,
+    const void* w_hh_t, const void* bias, const void* wp, const void* h, long long s_sb,
+    long long s_st, const void* cb, const void* dh, long long d_sb, long long d_st, void* dg,
+    void* dw, void* dx, int B, int T, int H, int spill, int C, int U, int nact, int bt,
+    int threads, int splits, int parts, void* stream) {
+  return tssep::tc::projection_backward<true>(
+      x, x_sb, x_st, F, w_ih_t, w_hh_t, bias, wp, h, nullptr, s_sb, s_st, cb, spill, dh, d_sb,
+      d_st, dg, dw, dx, B, T, H, C, U, nact, bt, threads, splits, parts,
+      static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of C CTAs of the spill walk at row tile bt, each of `threads`
+// threads and `smem` shared bytes, that the card holds at once, into
+// `slots`. Returns a cudaError_t.
+extern "C" int tssep_spill_walk_slots(int C, int bt, int threads, int smem, int* slots) {
+  using namespace tssep::tc;
+  return cluster_slots(walk_kernel<__nv_bfloat16, true>(bt), threads, (size_t)smem, C, slots);
 }

@@ -77,15 +77,15 @@ class MaskEstimator(nn.Module):
             raise _not_ported('aux_net')
         if input_normalizer is not None or aux_normalizer is not None:
             raise _not_ported('an input or aux normalizer')
-        if num_averaged_permutations < 1:
+        if num_averaged_permutations < 1 or (
+                not ts_vad and num_averaged_permutations != 1):
             raise ValueError(f'num_averaged_permutations='
-                             f'{num_averaged_permutations}')
+                             f'{num_averaged_permutations} with ts_vad='
+                             f'{ts_vad}: more than one needs ts_vad')
         if output_resolution == 't' and explicit_vad:
             raise ValueError("explicit_vad needs output_resolution='tf'")
         if ts_vad and not 2 < ts_vad < 20:
             raise ValueError(f'ts_vad={ts_vad}')
-        if aux_net_output_size is None:
-            aux_net_output_size = 100      # the JAX config's i-vector default
         if odim is None:
             odim = idim
         self.idim, self.odim, self.layers = idim, odim, layers
@@ -112,9 +112,11 @@ class MaskEstimator(nn.Module):
             raise ValueError(pre_net)
 
         if combination == 'cat':
+            if aux_net_output_size is None:
+                raise ValueError("combination='cat' needs aux_net_output_size")
             first_birnn_idim = odim + aux_net_output_size
         elif combination == 'mul':
-            if aux_net_output_size != odim:
+            if aux_net_output_size not in (None, odim):
                 raise ValueError(
                     f"combination='mul' needs aux embeddings of size odim="
                     f"{odim}, got aux_net_output_size={aux_net_output_size}")

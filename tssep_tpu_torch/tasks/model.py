@@ -85,6 +85,9 @@ class Model(nn.Module):
         fe = Log1pMaxNormAbsSTFT(**config.get('fe', {}))
         me_cfg = dict(idim=fe.output_size, odim=fe.frequencies, nmask=1)
         me_cfg.update(config.get('mask_estimator', {}))
+        if me_cfg.get('aux_net') is None:
+            # the JAX MaskEstimator.finalize_dogmatic_config's i-vector size
+            me_cfg.setdefault('aux_net_output_size', 100)
         estimator = MaskEstimator(**me_cfg, storage_dtype=storage_dtype,
                                   cond_fuse=cond_fuse, fullfuse=fullfuse,
                                   spill=spill, bidi=bidi, device=device)
