@@ -15,28 +15,30 @@ Phases, each of which must pass:
    and bound: the forward kernels at a ragged small shape, at the shapes of
    a served request (batch 16) and at the flagship training shapes (batch
    256); the backward kernels at a ragged shape and at the training shapes
-   of batch 16 and of batch 256. The fully fused pair, the bidi pair and
-   the conditioned pair and the spill pair run, in bfloat16, the clustered
-   Hopper kernels (``csrc/blstm_cluster_*.cuh``, the bidi pair in their
-   gate-input form, the conditioned pair in their conditioned form, the
+   of batch 16 and of batch 256. Every pair runs, in bfloat16, the
+   clustered Hopper kernels (``csrc/blstm_cluster_*.cuh``; the bidi pair in
+   their gate-input form, the one-direction pair in that form on a grid of
+   one direction, the conditioned pair in their conditioned form, the
    spill pair with the forward writing the c boundaries and the walk
    rebuilding c): each forward is timed beside the first design's kernels
    doing the same work (the fully fused forward's own first design, run
-   through the spill forward's f32 route in bf16, without boundaries;
-   ``lstm_fwd`` for each direction; the conditioned and the spill pair's
-   own first designs), the backward by its launches (gate product, walk,
-   weight sums and, fully fused and spill, dx; conditioned, dcond and its
-   split), each between CUDA events, the bidi backward beside ``lstm_bwd``
-   for each direction and the conditioned and spill ones beside their first
-   designs too. The conditioned pair is also timed beside the route the
+   through the spill forward's f32 route in bf16, without boundaries; the
+   one-direction pair's first design for each direction of the bidi pair;
+   the other pairs' own first designs), the backward by its launches (gate
+   product, walk, weight sums and, fully fused and spill, dx; conditioned,
+   dcond and its split), each between CUDA events, and beside its first
+   design (the bidi backward beside the one-direction first design for each
+   direction). The conditioned pair is also timed beside the route the
    default model takes on the same work: the materialized product and the
    clustered fully fused kernel at B S rows; the spill pair beside the fully
    fused pair on the same work. In bfloat16 the spill forward's h is held
    bit for bit against the fully fused forward's, and its boundaries
-   against that forward's saved c. The gate-input kernels (the bidi and the
-   unidirectional pair) are timed beside one cuDNN LSTM call that computes
-   their function from xg: input weights that select xg's columns, zero
-   biases;
+   against that forward's saved c; the one-direction pair on each half of
+   the bidi pair's xg against the bidi pair: h, c and dxg bit for bit, dW_hh
+   at ``CLUSTER_TOL``, and its backward gives the same bits twice. The
+   gate-input kernels (the bidi and the one-direction pair) are timed
+   beside one cuDNN LSTM call that computes their function from xg: input
+   weights that select xg's columns, zero biases;
 4. serving: the flagship TS-SEP model (``bench.py:98-106``, random weights
    from a seed) answers 3 requests of batch 16 through the kernels, which the
    launch counters prove, and its masks and waveforms agree with the same
@@ -68,8 +70,9 @@ Phases, each of which must pass:
 13. training with ``fullfuse=False, bidi=False``: 2 steps, every direction
     of every layer through the unidirectional pair.
 
-Before them a ``cond_fuse`` line and a ``spill`` line sum up the
-conditioned and the spill pair in bfloat16 at batch 16: each kernel's
+Before them a ``cond_fuse``, a ``spill`` and a ``bidi=False`` line sum up
+the conditioned, the spill and the one-direction pair in bfloat16 at batch
+16: each kernel's
 time, bound, first design's time, the time of the route it is compared
 with (materialized, or fully fused) and cuDNN yardstick, the backward's
 parts, and the times and peak memory of serving and training with the
@@ -145,7 +148,8 @@ CLUSTER_TOL = {'blstm_fullfused_fwd': 1.6e-2, 'blstm_fullfused_bwd': 5e-3,
                'blstm_fullfused_cond_fwd': 1.6e-2,
                'blstm_fullfused_cond_bwd': 5e-3,
                'blstm_fullfused_spill_fwd': 1.6e-2,
-               'blstm_fullfused_spill_bwd': 5e-3}
+               'blstm_fullfused_spill_bwd': 5e-3,
+               'lstm_fwd': 1.6e-2, 'lstm_bwd': 5e-3}
 #: The sources of the kernels each wrapper launches, by storage type.
 _CLUSTERED = {
     'fwd': {'bfloat16': 'tssep_tpu_torch/kernels/csrc/blstm_cluster_fwd.cuh',
@@ -159,7 +163,8 @@ DESIGNS = {'blstm_fullfused_fwd': _CLUSTERED['fwd'],
            'blstm_fullfused_cond_fwd': _CLUSTERED['fwd'],
            'blstm_fullfused_cond_bwd': _CLUSTERED['bwd'],
            'blstm_fullfused_spill_fwd': _CLUSTERED['fwd'],
-           'blstm_fullfused_spill_bwd': _CLUSTERED['bwd']}
+           'blstm_fullfused_spill_bwd': _CLUSTERED['bwd'],
+           'lstm_fwd': _CLUSTERED['fwd'], 'lstm_bwd': _CLUSTERED['bwd']}
 #: One training step, kernels against plain versions: the loss (abs) and
 #: each parameter's gradient (max abs error over max abs value). float32:
 #: f32 sums in another order through the forward, the ISTFT and the
@@ -339,7 +344,7 @@ def phase_build():
         if line.strip():
             log(f'  {line.strip()}')
     log('ptxas, clustered kernels (bf16 route of the fully fused, bidi, '
-        'conditioned and spill pairs):')
+        'one-direction, conditioned and spill pairs):')
     for name, entry, tail in _ptxas_summary(result.log):
         log(f'  {name}: {entry}: {" | ".join(tail)}')
     _build.library()
@@ -489,12 +494,20 @@ def lstm_case(label, B, T, H, reverse, dtype, gen):
             f'{"reverse" if reverse else "forward"}')
     library = _selection_lstm(name, xg, w_hh_t[None], want[0], dtype,
                               reverse=reverse)
-    return _case(
+    row = _case(
         name, dtype, lambda: kb.lstm_fwd(xg, w_hh_t, reverse=reverse),
         lambda: kb.lstm_fwd_plain(xg, w_hh_t, reverse=reverse),
         got, want, flops=2 * B * T * H * 4 * H,
         nbytes=size * (B * T * 4 * H + H * 4 * H + B * T * H),
-        library=library.forward, library_label=SELECTION_LIBRARY)
+        library=library.forward, library_label=SELECTION_LIBRARY,
+        tol=CLUSTER_TOL['lstm_fwd'] if dtype == BF16 else None)
+    row['design'] = DESIGNS['lstm_fwd'][row['dtype']]
+    if dtype == BF16:
+        row['first_design_ms'] = cuda_ms(
+            lambda: kb._lstm_fwd_first(xg, w_hh_t, reverse, False))
+        row['geometry'] = dataclasses.asdict(kb._geometry(
+            'fwd_xg', B, 4 * H, H, xg.device, 'uni', directions=1))
+    return row
 
 
 #: The yardstick of the gate-input kernels: one cuDNN LSTM call whose input
@@ -658,15 +671,31 @@ def bidi_case(label, B, T, H, dtype, gen):
         tol=CLUSTER_TOL['blstm_bidi_fwd'] if dtype == BF16 else None)
     row['design'] = DESIGNS['blstm_bidi_fwd'][row['dtype']]
     if dtype == BF16:
-        # the first design's kernels on the same work: lstm_fwd for each
-        # direction, from the same xg
+        # the first design's kernels on the same work: the one-direction
+        # pair's first design for each direction, from the same xg
         G = 4 * H
         row['first_design_ms'] = cuda_ms(lambda: (
-            kb.lstm_fwd(xg[..., :G], w_hh_t[0]),
-            kb.lstm_fwd(xg[..., G:], w_hh_t[1], reverse=True)))
+            kb._lstm_fwd_first(xg[..., :G], w_hh_t[0], False, False),
+            kb._lstm_fwd_first(xg[..., G:], w_hh_t[1], True, False)))
         row['geometry'] = dataclasses.asdict(
             kb._geometry('fwd_xg', B, 8 * H, H, xg.device, 'bidi'))
+        row['uni_identical'] = _uni_fwd_bits(xg, w_hh_t, got)
     return row
+
+
+def _uni_fwd_bits(xg, w_hh_t, got):
+    """In bfloat16, ``lstm_fwd`` on each half of the bidi layer's xg (a
+    strided view) gives the bidi forward's h and c halves bit for bit: the
+    same per-element arithmetic, and an mma column's sum does not depend
+    on the row tile. Checks; returns True."""
+    G, H = xg.shape[-1] // 2, w_hh_t.shape[1]
+    for d in range(2):
+        h, c = kb.lstm_fwd(xg[..., d * G:(d + 1) * G], w_hh_t[d],
+                           reverse=d == 1, with_cell=True)
+        check(torch.equal(h, got[0][..., d * H:(d + 1) * H])
+              and torch.equal(c, got[1][..., d * H:(d + 1) * H]),
+              f'lstm_fwd direction {d}: h and c the bidi forward\'s halves')
+    return True
 
 
 def cuda_ms_once(fn):
@@ -910,12 +939,29 @@ def lstm_bwd_case(label, B, T, H, reverse, dtype, gen):
     grad = 2 * rows * 2 * 4 * H * H
     nbytes = (size * (2 * rows * 4 * H + 2 * rows * H + H * 4 * H)
               + 4 * (rows * H + H * 4 * H))
-    return _bwd_case(
+    row = _bwd_case(
         name, dtype, lambda: kb.lstm_bwd(*args, reverse=reverse),
         lambda: kb.lstm_bwd_plain(*args, reverse=reverse),
-        ('dxg', 'dw_hh'), bwd_bound(rec, grad, nbytes, dtype),
+        ('dxg', 'dw_hh'),
+        bwd_bound(rec, grad, nbytes, dtype, split=dtype == BF16),
         library=lambda: library.backward(dh.to(dtype)),
-        library_label=SELECTION_LIBRARY + ', backward')
+        library_label=SELECTION_LIBRARY + ', backward',
+        tol=CLUSTER_TOL['lstm_bwd'] if dtype == BF16 else None)
+    row['design'] = DESIGNS['lstm_bwd'][row['dtype']]
+    if dtype == BF16:
+        first, again = (kb.lstm_bwd(*args, reverse=reverse) for _ in range(2))
+        check(all(torch.equal(f, a) for f, a in zip(first, again)),
+              f'{name}: the same bits on two runs')
+        row['repeats_bitwise'] = True
+        out = kb._lstm_bwd_buffers(xg, H)
+        row['parts_ms'] = _parts_ms(lambda bits: kb._lstm_bwd_cluster(
+            *args, reverse, parts=bits, out=out), kb.LSTM_BWD_PARTS)
+        del out
+        row['first_design_ms'] = cuda_ms(
+            lambda: kb._lstm_bwd_first(*args, reverse))
+        row['geometry'] = dataclasses.asdict(kb._geometry(
+            'bwd', B, 4 * H, H, xg.device, 'uni', directions=1))
+    return row
 
 
 def cond_bwd_case(label, B, S, T, F, H, dtype, gen):
@@ -1035,6 +1081,7 @@ def bidi_bwd_case(label, B, T, H, dtype, gen):
     if dtype == BF16:
         row['parts_ms'] = _bidi_bwd_parts_ms(args)
         row['first_design_ms'] = _bidi_bwd_first_design_ms(args)
+        row['uni_identical'] = _uni_bwd_bits(args)
         row['geometry'] = dataclasses.asdict(
             kb._geometry('bwd', B, 8 * H, H, xg.device, 'bidi'))
     return row
@@ -1047,18 +1094,43 @@ def _bidi_bwd_parts_ms(args):
         *args, parts=bits, out=out), kb.BIDI_BWD_PARTS)
 
 
-def _bidi_bwd_first_design_ms(args):
-    """The first design's kernels on the same work: ``lstm_bwd`` for each
-    direction (each direction's h and c made contiguous outside the timed
-    calls, as that kernel reads them)."""
+def _directions_of(args):
+    """The one-direction pair's arguments for each direction of a bidi
+    backward's (each direction's h and c made contiguous, as those kernels
+    read them; xg and dh strided views)."""
     xg, w_hh_t, h, c, dh = args
     G, H = xg.shape[-1] // 2, w_hh_t.shape[1]
-    dirs = [(xg[..., d * G:(d + 1) * G], w_hh_t[d],
+    return [(xg[..., d * G:(d + 1) * G], w_hh_t[d],
              h[..., d * H:(d + 1) * H].contiguous(),
              c[..., d * H:(d + 1) * H].contiguous(),
              dh[..., d * H:(d + 1) * H]) for d in range(2)]
-    return cuda_ms(lambda: [kb.lstm_bwd(*a, reverse=d == 1)
+
+
+def _bidi_bwd_first_design_ms(args):
+    """The first design's kernels on the same work: the one-direction
+    pair's first design for each direction (its inputs made outside the
+    timed calls)."""
+    dirs = _directions_of(args)
+    return cuda_ms(lambda: [kb._lstm_bwd_first(*a, d == 1)
                             for d, a in enumerate(dirs)])
+
+
+def _uni_bwd_bits(args):
+    """In bfloat16, ``lstm_bwd`` on each direction of a bidi backward's
+    work gives the bidi backward's dxg halves bit for bit, and dW_hh^T
+    within ``CLUSTER_TOL`` of its own (bit for bit only where the weight
+    sums cut the rows alike). Checks; returns True."""
+    dxg2, dw2 = kb.blstm_bidi_bwd(*args)
+    G = dxg2.shape[-1] // 2
+    for d, a in enumerate(_directions_of(args)):
+        dxg, dw = kb.lstm_bwd(*a, reverse=d == 1)
+        check(torch.equal(dxg, dxg2[..., d * G:(d + 1) * G]),
+              f'lstm_bwd direction {d}: dxg the bidi backward\'s half')
+        rel = ((dw - dw2[d]).abs().max() / dw2[d].abs().max()).item()
+        check(rel <= CLUSTER_TOL['lstm_bwd'],
+              f'lstm_bwd direction {d}: dW_hh^T against the bidi backward\'s '
+              f'{rel:.3g}')
+    return True
 
 
 def phase_kernels():
@@ -1592,6 +1664,8 @@ def main():
     pair_summary('spill', ('blstm_fullfused_spill_fwd',
                            'blstm_fullfused_spill_bwd'), rows,
                  switched['serve spill'], switched['train spill'])
+    pair_summary('bidi=False', ('lstm_fwd', 'lstm_bwd'), rows,
+                 switched['serve bidi=False'], switched['train bidi=False'])
     print(json.dumps(kernels_line(rows, {
         'serve': serve_launches,
         'serve cond_fuse': serving_cond['launches'],

@@ -1,13 +1,13 @@
 """The port's ten CUDA kernels against their plain versions, on the card.
 
-The fully fused pair's, the bidi pair's, the conditioned pair's and the
-spill pair's bfloat16 routes run the clustered Hopper kernels
+Every pair's bfloat16 route runs the clustered Hopper kernels
 (``csrc/blstm_cluster_*.cuh``, the bidi pair in their gate-input form, the
+one-direction pair in that form on a grid of one direction, the
 conditioned pair in their conditioned form, the spill pair with the
 forward writing the c boundaries and the walk rebuilding c); their tests
 below stress the cluster split, the row tiles and waves, the x staging (and
-the conditioned product formed there), the copy of xg, the boundaries and
-the walk, at the acceptance tolerances: forward 1.6e-2
+the conditioned product formed there), the copy of xg, the reverse walk,
+the boundaries and the walk, at the acceptance tolerances: forward 1.6e-2
 abs (one bf16 ulp of c below 4, flipped by a sum order that differs from
 the plain version's), backward 5e-3 of each output's peak (dx is rounded to
 bf16 per direction, the conditioned dx and daux once; the gate gradients
@@ -675,3 +675,129 @@ def test_cluster_spill_capacity_is_that_of_the_kernel_that_runs(gen):
         assert geo.clusters_per_wave == min(held, geo.clusters)
         if rows <= 128:
             assert geo.waves == 1
+
+
+# The one-direction pair's bf16 route (the gate-input form of
+# csrc/blstm_cluster_*.cuh on a grid of one direction), (B, T, H): H 16 on
+# a cluster of 4, H 37 with CTAs that own no unit and gate columns only
+# 2-byte aligned, H 300 as served and trained (16 rows, T 316), at 128
+# rows (fullfuse=False), 256 rows (one wave on 24-row tiles) and 2048
+# (more than one wave), H 512 on 16-CTA clusters at 300 rows (more than one
+# wave); T 1, 2, 9, 37 and 316.
+UNI_CASES = [(1, 1, 16), (13, 2, 37), (5, 37, 300), (16, 316, 300),
+             (128, 37, 300), (256, 9, 300), (2048, 2, 300), (300, 9, 512)]
+
+
+def _uni_inputs(gen, B, T, H):
+    xg = torch.randn(B, T, 4 * H, generator=gen, device='cuda').to(
+        torch.bfloat16)
+    w_hh_t = _uniform(gen, (H, 4 * H), H ** -0.5, torch.bfloat16)
+    return xg, w_hh_t
+
+
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('B,T,H', UNI_CASES)
+def test_cluster_lstm_fwd_matches_plain(gen, B, T, H, reverse):
+    """h and c against the plain version, in both directions; without c
+    the same h; one launch a call."""
+    xg, w_hh_t = _uni_inputs(gen, B, T, H)
+    before = kb.lstm_fwd.launches
+    got = kb.lstm_fwd(xg, w_hh_t, reverse=reverse, with_cell=True)
+    assert kb.lstm_fwd.launches == before + 1
+    want = kb.lstm_fwd_plain(xg, w_hh_t, reverse=reverse, with_cell=True)
+    for g, w in zip(got, want):
+        assert g.shape == (B, T, H) and g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(),
+                                   atol=CLUSTER_FWD_ATOL, rtol=0)
+    h_only, c_none = kb.lstm_fwd(xg, w_hh_t, reverse=reverse)
+    assert c_none is None
+    assert torch.equal(h_only, got[0])
+
+
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('B,T,H', UNI_CASES)
+def test_cluster_lstm_bwd_matches_plain_and_repeats(gen, B, T, H, reverse):
+    """dxg and dW_hh against the plain version, dh in float32, in both
+    directions; two launches give the same bits."""
+    xg, w_hh_t = _uni_inputs(gen, B, T, H)
+    h, c = kb.lstm_fwd(xg, w_hh_t, reverse=reverse, with_cell=True)
+    dh = torch.randn(B, T, H, generator=gen, device='cuda')
+    before = kb.lstm_bwd.launches
+    got = kb.lstm_bwd(xg, w_hh_t, h, c, dh, reverse=reverse)
+    again = kb.lstm_bwd(xg, w_hh_t, h, c, dh, reverse=reverse)
+    assert kb.lstm_bwd.launches == before + 2
+    assert got[0].shape == (B, T, 4 * H) and got[0].dtype == torch.bfloat16
+    assert got[1].shape == (H, 4 * H) and got[1].dtype == torch.float32
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    want = kb.lstm_bwd_plain(xg, w_hh_t, h, c, dh, reverse=reverse)
+    assert _rel_err(got, want) <= CLUSTER_BWD_RTOL
+
+
+@pytest.mark.parametrize('B,T,H', [(13, 2, 37), (16, 316, 300),
+                                   (256, 9, 300)])
+def test_cluster_lstm_pair_is_the_bidi_pairs_halves(gen, B, T, H):
+    """Each direction alone on its half of the bidi layer's xg (a strided
+    view): h and c are the bidi forward's halves bit for bit, and dxg the
+    bidi backward's halves (the same per-element arithmetic and sum orders;
+    the row tile does not change a column's sum); dW_hh^T agrees at
+    CLUSTER_BWD_RTOL, bit for bit only where the weight sums cut the rows
+    alike."""
+    xg, w_hh_t = _bidi_inputs(gen, B, T, H)
+    G = 4 * H
+    h2, c2 = kb.blstm_bidi_fwd(xg, w_hh_t, with_cell=True)
+    dh = torch.randn(B, T, 2 * H, generator=gen, device='cuda')
+    dxg2, dw2 = kb.blstm_bidi_bwd(xg, w_hh_t, h2, c2, dh)
+    for d in range(2):
+        xd, wd = xg[..., d * G:(d + 1) * G], w_hh_t[d]
+        h, c = kb.lstm_fwd(xd, wd, reverse=d == 1, with_cell=True)
+        assert torch.equal(h, h2[..., d * H:(d + 1) * H])
+        assert torch.equal(c, c2[..., d * H:(d + 1) * H])
+        dxg, dw = kb.lstm_bwd(xd, wd, h, c, dh[..., d * H:(d + 1) * H],
+                              reverse=d == 1)
+        assert torch.equal(dxg, dxg2[..., d * G:(d + 1) * G])
+        assert _rel_err([dw], [dw2[d]]) <= CLUSTER_BWD_RTOL
+
+
+def test_cluster_lstm_strided_inputs_read_in_place(gen):
+    """The one-direction pair's bf16 route reads xg and dh with any batch
+    and time strides (slices of wider tensors), giving the bits of
+    contiguous inputs."""
+    B, T, H = 6, 11, 37
+    xg, w_hh_t = _uni_inputs(gen, B, T, H)
+    wide = torch.zeros(B, T + 1, 5 * H, device='cuda', dtype=torch.bfloat16)
+    wide[:, 1:, H:] = xg
+    xv = wide[:, 1:, H:]
+    got = kb.lstm_fwd(xv, w_hh_t, reverse=True, with_cell=True)
+    want = kb.lstm_fwd(xg, w_hh_t, reverse=True, with_cell=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    h, c = want
+    wide_dh = torch.randn(B, T + 3, 3 * H, generator=gen, device='cuda')
+    dh = wide_dh[:, 1:T + 1, H:2 * H]
+    got = kb.lstm_bwd(xv, w_hh_t, h, c, dh, reverse=True)
+    want = kb.lstm_bwd(xg, w_hh_t, h, c, dh.contiguous(), reverse=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize('kind', ['fwd_xg', 'bwd'])
+def test_cluster_lstm_capacity_is_that_of_the_kernel_that_runs(gen, kind):
+    """The one-direction pair's geometry asks
+    cudaOccupancyMaxActiveClusters about the gate-input forward, or the
+    walk that takes dh in float32, compiled in its own sources
+    (``tssep_lstm_fwd_slots``, ``tssep_lstm_walk_slots``), at the plan it
+    picks: at birnn2's 16, 128 and 256 rows one wave of one cluster per
+    row tile, where the bidi plan at 256 rows needs two."""
+    device = torch.device('cuda', torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for rows in (16, 128, 256):
+        geo = kb._geometry(kind, rows, 4 * 300, 300, device, 'uni',
+                           directions=1)
+        held = kb._cluster_slots(kind, device, geo.cluster, geo.row_tile,
+                                 geo.chunk, geo.threads, geo.shared,
+                                 route='uni')
+        assert held is not None and held * geo.cluster <= sms
+        assert geo.clusters == geo.tiles
+        assert geo.clusters_per_wave == min(held, geo.clusters)
+        assert geo.waves == 1

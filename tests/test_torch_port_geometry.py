@@ -1,5 +1,5 @@
 """The launch geometry and weight packing of the clustered kernels, the bf16
-route of the fully fused pair, of the conditioned pair and of the bidi pair
+route of every pair, the one-direction pair's on a grid of one direction
 (``kernels/blstm.py`` ``cluster_geometry``, ``_pack_fwd``, ``_pack_walk``,
 ``_xg_columns``): pure Python, no card, no JAX.
 
@@ -46,7 +46,7 @@ def _check(geo, rows, F, H):
     # every row in a tile, no tile empty
     assert geo.tiles * geo.row_tile >= rows > (geo.tiles - 1) * geo.row_tile
     assert geo.row_tile in (8, 16, 24, 32)
-    assert geo.clusters == 2 * geo.tiles
+    assert geo.clusters == geo.directions * geo.tiles
     assert geo.clusters_per_wave * C <= kb.H100_SMS
     assert geo.waves * geo.clusters_per_wave >= geo.clusters
     assert geo.shared <= 232448 and geo.threads % 32 == 0
@@ -72,18 +72,21 @@ def _check(geo, rows, F, H):
                                              geo.row_tile, cache)
 
 
+@pytest.mark.parametrize('directions', [2, 1])
 @pytest.mark.parametrize('kind', ['fwd', 'bwd', 'fwd_xg', 'fwd_cond',
                                   'bwd_spill'])
 @pytest.mark.parametrize('slots', [None, _h100_slots],
                          ids=['sms-over-cluster', 'h100-capacity'])
 @pytest.mark.parametrize('H', [16, 37, 300, 512])
-def test_geometry_invariants(kind, slots, H):
+def test_geometry_invariants(kind, slots, H, directions):
     """Over rows and widths, with the card's cluster capacity known or
-    not: units owned once, rows covered, shared bytes and threads within
-    Hopper's limits, clusters of a wave within 132 SMs."""
+    not, for a launch of both directions or of one: units owned once, rows
+    covered, a cluster per tile and direction, shared bytes and threads
+    within Hopper's limits, clusters of a wave within 132 SMs."""
     for rows, F in itertools.product(ROWS, WIDTHS):
-        geo = kb.cluster_geometry(kind, rows, F, H, slots=slots)
-        assert geo.kind == kind
+        geo = kb.cluster_geometry(kind, rows, F, H, slots=slots,
+                                  directions=directions)
+        assert geo.kind == kind and geo.directions == directions
         _check(geo, rows, F, H)
 
 
@@ -421,3 +424,91 @@ def test_each_slot_query_is_a_kernel_capacity_export(kind, route):
     assert argtypes == [_build._I] * ints + [_build._P]
     sources = ''.join(p.read_text() for p in _build.CSRC.glob('*.cu'))
     assert f'extern "C" int {name}(' in sources
+
+
+@pytest.mark.parametrize('kind', ['fwd_xg', 'bwd'])
+def test_one_direction_geometry_at_birnn2(kind):
+    """The one-direction pair's bf16 route (``lstm_fwd``, ``lstm_bwd``) at
+    the flagship's birnn2 (H 300) with ``bidi=False``: 16 rows (a request
+    or a step at batch 16), 128 (the folded layers with
+    ``fullfuse=False``) and 256 (batch 256) take one cluster per row tile
+    and fit one wave of the 15 clusters an H100 holds; at 256 rows on
+    24-row tiles (11 clusters), where the bidi plan needs 16 clusters of
+    32-row tiles, two waves."""
+    def g(rows, directions):
+        return kb.cluster_geometry(kind, rows, 4 * 300, 300,
+                                   slots=_h100_slots, directions=directions)
+
+    for rows in (16, 128, 256):
+        geo = g(rows, 1)
+        assert geo.clusters == geo.tiles and geo.waves == 1
+        assert (geo.cluster, geo.units, geo.active) == (8, 40, 8)
+        _check(geo, rows, 4 * 300, 300)
+    assert [g(rows, 1).row_tile for rows in (16, 128, 256)] == [8, 16, 24]
+    assert g(256, 1).clusters == 11
+    bidi = g(256, 2)
+    assert (bidi.row_tile, bidi.clusters, bidi.waves) == (32, 16, 2)
+    # the plan at a row tile does not depend on the direction count
+    assert g(16, 1) == dataclasses.replace(g(16, 2), clusters=2,
+                                           clusters_per_wave=2, directions=1)
+    with pytest.raises(ValueError):
+        kb.cluster_geometry(kind, 16, 1200, 300, directions=3)
+
+
+@pytest.mark.parametrize('H,C', [(16, 4), (37, 8), (300, 8), (512, 16)])
+def test_one_direction_xg_columns_hold_each_gate_column_once(H, C):
+    """The one-direction forward's column map, (1, C, 4U): local gate row m
+    of CTA r reads column g H + u of xg (B, T, 4H), -1 where u is padding,
+    every one of the 4H columns exactly once; it is direction 0 of the
+    bidi table."""
+    geo = kb.cluster_geometry('fwd_xg', 16, 4 * H, H, directions=1)
+    assert geo.cluster == C
+    U = geo.units
+    cols = kb._xg_columns(H, C, U, torch.device('cpu'), 1)
+    assert cols.dtype == torch.int32 and cols.shape == (1, C, 4 * U)
+    assert cols.is_contiguous()
+    both = kb._xg_columns(H, C, U, torch.device('cpu'))
+    torch.testing.assert_close(cols[0], both[0], atol=0, rtol=0)
+    real = cols[cols >= 0]
+    assert sorted(real.tolist()) == list(range(4 * H))
+    rows = kb._gate_rows(H, C, U, torch.device('cpu'))
+    assert bool(((cols[0] == -1) == (rows == 4 * H)).all())
+
+
+@pytest.mark.parametrize('H,F', [(16, 12), (37, 20), (300, 513)])
+def test_one_direction_packing_is_the_first_directions(H, F):
+    """_pack and _pack_walk of one direction's w_hh_t[None], as
+    ``lstm_fwd`` and ``lstm_bwd`` pack it: the fragments of a two-direction
+    pack's direction 0, contiguous, for the forward and the walk."""
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn(2, H, 4 * H, generator=gen)
+    for kind, pack in (('fwd_xg', lambda t, geo: kb._pack(t, 'fwd', geo, H)),
+                       ('bwd', lambda t, geo: kb._pack_walk(t, geo, H))):
+        geo = kb.cluster_geometry(kind, 16, 4 * H, H, directions=1)
+        one, both = pack(w[:1], geo), pack(w, geo)
+        assert one.is_contiguous() and one.shape == (1, *both.shape[1:])
+        torch.testing.assert_close(one[0], both[0], atol=0, rtol=0)
+
+
+def test_one_output_wgrad_splits_fit_their_workspace(monkeypatch):
+    """The one-direction backward's weight sums dW_hh^T (30 tiles of 128 x
+    128 at H 300): at most 8 ranges of at least 64 blocks of 32 rows that
+    cover the B T rows, their partials in the (splits - 1, H, 4H) workspace
+    of ``_lstm_bwd_buffers`` (what ``csrc/lstm_bwd.cu`` requires); 2, 4 and
+    4 ranges at the flagship's 16, 128 and 256 rows of 316 steps."""
+    monkeypatch.setattr(kb, '_sms', lambda device: kb.H100_SMS)
+    for rows in (1, 13, 5056, 40448, 80896, 647168):
+        for H in (16, 300, 512):
+            splits = kb.gate_wgrad_splits(rows, H, outputs=1)
+            assert 1 <= splits <= 8
+            assert splits == 1 or rows // splits >= 32 * 64
+            kps = -(-(-(-rows // splits)) // 32) * 32
+            assert (splits - 1) * kps < rows <= splits * kps
+    for B, splits in ((16, 2), (128, 4), (256, 4)):
+        assert kb.gate_wgrad_splits(B * 316, 300, outputs=1) == splits
+        xg = torch.empty(B, 316, 4 * 300, dtype=torch.bfloat16)
+        dg, dxg, dw, ws = kb._lstm_bwd_buffers(xg, 300)
+        assert dg.shape == (1, B, 316, 1200) and dw.shape == (300, 1200)
+        assert dxg.shape == xg.shape and dxg.dtype == torch.bfloat16
+        assert ws.shape == (splits - 1, 300, 1200)
+        assert ws.dtype == dg.dtype == dw.dtype == torch.float32

@@ -34,22 +34,24 @@ inputs ``xg`` (B, T, 4H) and its backward, dxg and dW_hh; ``reverse=True``
 walks t = T-1 .. 0.
 The CUDA sources, with what bounds each kernel on an H100, are in ``csrc/``.
 
-The fully fused pair, the bidi pair, the conditioned pair and the spill
-pair have two routes by storage dtype. bfloat16, the one the flagship
+Every pair has two routes by storage dtype. bfloat16, the one the flagship
 serves and trains in, runs the Hopper design of
 ``csrc/blstm_cluster_fwd.cuh`` and ``csrc/blstm_cluster_bwd.cuh``: W_hh
 split over a thread-block cluster and resident in shared memory,
 tensor-core products, the input projection (or the copy of the gate inputs
-xg) off the serial chain; the bidi pair runs its gate-input form, the
-conditioned pair its conditioned form, which forms the rows
-``xs[b] * aux[b, s]`` where the projection form stages x, and the spill
+xg) off the serial chain. The fully fused pair runs its projection form;
+the bidi pair its gate-input form, and the one-direction pair that form
+launched for one direction (a grid of one direction and a reverse flag);
+the conditioned pair its conditioned form, which forms the rows
+``xs[b] * aux[b, s]`` where the projection form stages x; and the spill
 pair the projection form, whose forward writes the c boundaries and whose
 walk rebuilds c from them. Its launch geometry comes from
 :func:`cluster_geometry`, and the weights enter it packed per CTA in the
 tensor cores' fragment order (:func:`_pack_fwd`, :func:`_pack_walk`).
 float32, the tests' and checks' mode, keeps the first design
-(``csrc/blstm_common.cuh``, ``csrc/blstm_bwd_common.cuh``), which the
-other two kernels share.
+(``csrc/blstm_common.cuh``, ``csrc/blstm_bwd_common.cuh``); each pair's
+first design stays callable in bfloat16 too, as the yardstick that
+``chip_smoke.py`` times the redesign beside (``_*_first``).
 
 Each bidirectional wrapper takes one layer's two directions stacked on a
 leading axis of 2 (forward, reverse). Sequences are (B, T, 2H), the forward direction in
@@ -432,8 +434,9 @@ class ClusterGeometry:
 
     ``cluster`` CTAs a cluster, CTA r owning the hidden units
     ``[r units, min(H, (r + 1) units))``, the first ``active`` of them owning
-    any; one cluster per (tile of ``row_tile`` rows, direction),
-    ``clusters`` in all, ``clusters_per_wave`` resident at once;
+    any; one cluster per (tile of ``row_tile`` rows, direction) of the
+    launch's ``directions``, ``clusters`` in all, ``clusters_per_wave``
+    resident at once;
     ``threads`` and ``shared`` bytes a CTA. Forward only: ``chunk`` steps of
     gate inputs computed (or copied) at a time; projection form only: x
     staged ``k_block`` columns at a time."""
@@ -449,6 +452,7 @@ class ClusterGeometry:
     k_block: int
     clusters: int
     clusters_per_wave: int
+    directions: int
 
     @property
     def waves(self):
@@ -462,16 +466,19 @@ class ClusterGeometry:
 GEOMETRY_KINDS = ('fwd', 'fwd_cond', 'fwd_xg', 'bwd', 'bwd_spill')
 
 
-def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
+def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None,
+                     directions=2):
     """The launch geometry of ``blstm_fullfused_fwd`` (``kind`` 'fwd'), of
     ``blstm_fullfused_cond_fwd`` ('fwd_cond', the conditioned form: rows
-    are the B S conditioned rows), of ``blstm_bidi_fwd`` ('fwd_xg', the
-    gate-input form) or of the walk of ``blstm_fullfused_bwd``,
-    ``blstm_fullfused_cond_bwd`` and ``blstm_bidi_bwd`` ('bwd') or of
+    are the B S conditioned rows), of ``blstm_bidi_fwd`` and ``lstm_fwd``
+    ('fwd_xg', the gate-input form) or of the walk of
+    ``blstm_fullfused_bwd``, ``blstm_fullfused_cond_bwd``,
+    ``blstm_bidi_bwd`` and ``lstm_bwd`` ('bwd') or of
     ``blstm_fullfused_spill_bwd`` ('bwd_spill', whose walk also holds a
     spill block's rebuilt c) in bf16 storage, for ``rows`` rows, input
-    width F (read by the projection forms only) and hidden size H:
-    a pure function of its arguments. ``slots(cluster, row_tile, chunk,
+    width F (read by the projection forms only), hidden size H and
+    ``directions`` walked in one launch (1 for ``lstm_fwd`` and
+    ``lstm_bwd``): a pure function of its arguments. ``slots(cluster, row_tile, chunk,
     threads, shared)`` gives the clusters of the kernel that such a plan
     launches that the card holds at once, or None (an H100 SXM holds 15
     clusters of 8 CTAs that take a whole SM each, not 132 // 8 = 16, as its
@@ -495,6 +502,8 @@ def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
         raise ValueError(f'kind must be one of {GEOMETRY_KINDS}, got {kind!r}')
     if rows < 1 or F < 1 or H < 1:
         raise ValueError(f'empty layer: rows {rows}, F {F}, H {H}')
+    if directions not in (1, 2):
+        raise ValueError(f'directions must be 1 or 2, got {directions}')
     if H > _MAX_HIDDEN:
         raise ValueError(f'hidden size {H} > {_MAX_HIDDEN}')
     KH, KF = _ceil_to(H, 16), _ceil_to(F, 16)
@@ -523,7 +532,8 @@ def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
                 plans.append((BT, plan, per_wave))
         if not plans:
             continue
-        one_wave = [p for p in plans if 2 * -(-rows // p[0]) <= p[2]]
+        one_wave = [p for p in plans
+                    if directions * -(-rows // p[0]) <= p[2]]
         # x staged in blocks costs each step a barrier pair and a short
         # product per block, more than a smaller tile's extra waves cost:
         # chip_smoke.py times the conditioned forward both ways at 2048 rows
@@ -534,8 +544,9 @@ def cluster_geometry(kind, rows, F, H, sms=H100_SMS, slots=None):
         return ClusterGeometry(
             kind=kind, cluster=cluster, units=U, active=nact, row_tile=BT,
             tiles=tiles, threads=threads, shared=shared, chunk=TC,
-            k_block=KX, clusters=2 * tiles,
-            clusters_per_wave=min(per_wave, 2 * tiles))
+            k_block=KX, clusters=directions * tiles,
+            clusters_per_wave=min(per_wave, directions * tiles),
+            directions=directions)
     raise ValueError(f'no cluster of at most 16 CTAs holds a {kind} layer '
                      f'with H {H}, F {F} in shared memory')
 
@@ -588,16 +599,18 @@ def wgrad_splits(rows, F, H, sms=H100_SMS):
     return _splits(F + H + 1, rows, H, room, sms)
 
 
-def gate_wgrad_splits(rows, H, sms=H100_SMS):
-    """Row ranges of the bf16 bidi backward's weight sums dW_hh^T, (H, 4H)
-    per direction, as :func:`wgrad_splits` cuts them; the partials go to a
-    workspace of their own. A pure function."""
-    return _splits(H, rows, H, 8, sms)
+def gate_wgrad_splits(rows, H, sms=H100_SMS, outputs=2):
+    """Row ranges of the bf16 gate-input backward's weight sums dW_hh^T,
+    (H, 4H) for each of ``outputs`` directions (2 for ``blstm_bidi_bwd``, 1
+    for ``lstm_bwd``), as :func:`wgrad_splits` cuts them; the partials go to
+    a workspace of their own. A pure function."""
+    return _splits(H, rows, H, 8, sms, outputs)
 
 
-def _splits(M, rows, H, room, sms):
-    """The ranges for 2 outputs (M, 4H) summed over ``rows`` rows."""
-    tiles = 2 * -(-M // 128) * -(-(4 * H) // 128)
+def _splits(M, rows, H, room, sms, outputs=2):
+    """The ranges for ``outputs`` outputs (M, 4H) summed over ``rows``
+    rows."""
+    tiles = outputs * -(-M // 128) * -(-(4 * H) // 128)
     best = 1
     for splits in range(2, min(8, room, rows // (32 * 64)) + 1):
         if (-(-tiles * splits // sms) * best
@@ -639,13 +652,13 @@ def _gate_rows(H, cluster, U, device):
 
 
 @functools.lru_cache(maxsize=32)
-def _pack_index(kind, k, H, cluster, U, device):
-    """Where each value of a packed weight comes from: for w_t (2, k, 4H)
-    flattened per direction with one zero appended (at k 4H, read for
-    padded units and for rows beyond k), and the two directions then laid
-    end to end, the flat index (int32) of each value of :func:`_pack_fwd`'s
-    (kind 'fwd') or :func:`_pack_walk`'s ('walk') fragments, (2, C, U/4,
-    K/16, 32, 8) or (2, C, K/16, U/4, 32, 8)."""
+def _pack_index(kind, k, H, cluster, U, device, directions=2):
+    """Where each value of a packed weight comes from: for w_t (n, k, 4H),
+    n = ``directions``, flattened per direction with one zero appended (at
+    k 4H, read for padded units and for rows beyond k), and the directions
+    then laid end to end, the flat index (int32) of each value of
+    :func:`_pack_fwd`'s (kind 'fwd') or :func:`_pack_walk`'s ('walk')
+    fragments, (n, C, U/4, K/16, 32, 8) or (n, C, K/16, U/4, 32, 8)."""
     n, K = k * 4 * H, _ceil_to(k, 16)
     src = torch.nn.functional.pad(torch.arange(n).reshape(k, 4 * H),
                                   (0, 1, 0, K - k), value=n)
@@ -654,16 +667,17 @@ def _pack_index(kind, k, H, cluster, U, device):
     if kind == 'walk':
         tiles = tiles.transpose(-1, -2)
     idx = _fragments(tiles)
-    idx = torch.stack([idx, idx + n + 1])
+    idx = torch.stack([idx + d * (n + 1) for d in range(directions)])
     return idx.to(device=device, dtype=torch.int32)
 
 
 def _pack(w_t, kind, geo, H):
-    """w_t (2, k, 4H) in fragment order by :func:`_pack_index`, contiguous:
-    one pad and one gather."""
+    """w_t (n, k, 4H), n directions, in fragment order by
+    :func:`_pack_index`, contiguous: one pad and one gather."""
+    n = w_t.shape[0]
     idx = _pack_index(kind, w_t.shape[1], H, geo.cluster, geo.units,
-                      w_t.device)
-    return torch.nn.functional.pad(w_t.reshape(2, -1), (0, 1)).view(-1)[idx]
+                      w_t.device, n)
+    return torch.nn.functional.pad(w_t.reshape(n, -1), (0, 1)).view(-1)[idx]
 
 
 def _pack_fwd(w_ih_t, w_hh_t, bias, geo, H):
@@ -677,21 +691,21 @@ def _pack_fwd(w_ih_t, w_hh_t, bias, geo, H):
 
 
 @functools.lru_cache(maxsize=32)
-def _xg_columns(H, cluster, U, device):
-    """(2, C, 4U) int32: the column of xg (B, T, 8H) that each CTA's local
-    gate row takes its gate input from in direction d, d 4H plus the global
-    gate row of :func:`_gate_rows`, or -1 where the unit is padding. The
-    gate-input forward's producers copy by it
+def _xg_columns(H, cluster, U, device, directions=2):
+    """(n, C, 4U) int32, n = ``directions``: the column of xg (B, T, n 4H)
+    that each CTA's local gate row takes its gate input from in direction
+    d, d 4H plus the global gate row of :func:`_gate_rows`, or -1 where the
+    unit is padding. The gate-input forward's producers copy by it
     (``csrc/blstm_cluster_fwd.cuh``)."""
     rows = _gate_rows(H, cluster, U, torch.device('cpu'))
-    cols = torch.stack([rows + 4 * H * d for d in range(2)])
+    cols = torch.stack([rows + 4 * H * d for d in range(directions)])
     return torch.where(rows < 4 * H, cols, -1).to(device=device,
                                                    dtype=torch.int32)
 
 
 def _pack_walk(w_hh_t, geo, H):
-    """The walk's operand: per CTA, W_hh^T (KH, 4U) restricted to its gate
-    rows, as fragments (2, C, KH/16, U/4, 32, 8)."""
+    """The walk's operand for w_hh_t (n, H, 4H): per CTA, W_hh^T (KH, 4U)
+    restricted to its gate rows, as fragments (n, C, KH/16, U/4, 32, 8)."""
     return _pack(w_hh_t, 'walk', geo, H)
 
 
@@ -702,12 +716,15 @@ def _sms(device):
 #: The capacity query of the kernel that each (geometry kind, route)
 #: launches: the forward's projection, conditioned or gate-input form, the
 #: walk with dh in bf16 (fully fused, conditioned) or f32 (bidi), and the
-#: walk's spill form.
+#: walk's spill form; the one-direction pair ('uni') launches the
+#: gate-input forward and the f32-dh walk compiled in its own sources.
 _SLOT_QUERIES = {('fwd', 'fullfused'): 'tssep_cluster_fwd_slots',
                  ('fwd_cond', 'cond'): 'tssep_cond_fwd_slots',
                  ('fwd_xg', 'bidi'): 'tssep_bidi_fwd_slots',
+                 ('fwd_xg', 'uni'): 'tssep_lstm_fwd_slots',
                  ('bwd', 'fullfused'): 'tssep_cluster_walk_slots',
                  ('bwd', 'bidi'): 'tssep_bidi_walk_slots',
+                 ('bwd', 'uni'): 'tssep_lstm_walk_slots',
                  ('bwd_spill', 'spill'): 'tssep_spill_walk_slots'}
 
 
@@ -730,13 +747,14 @@ def _cluster_slots(kind, device, cluster, row_tile, chunk, threads, shared,
 
 
 @functools.lru_cache(maxsize=64)
-def _geometry(kind, rows, F, H, device, route='fullfused'):
+def _geometry(kind, rows, F, H, device, route='fullfused', directions=2):
     """:func:`cluster_geometry` for a launch on ``device`` of the kernel
-    that ``kind`` and ``route`` ('fullfused', 'cond', 'bidi' or 'spill')
-    name."""
+    that ``kind`` and ``route`` ('fullfused', 'cond', 'bidi', 'spill' or
+    'uni') name, walking ``directions``."""
     return cluster_geometry(
         kind, rows, F, H, _sms(device),
-        slots=functools.partial(_cluster_slots, kind, device, route=route))
+        slots=functools.partial(_cluster_slots, kind, device, route=route),
+        directions=directions)
 
 
 # ---------------------------------------------------------------------------
@@ -1547,17 +1565,41 @@ def lstm_fwd(xg, w_hh_t, *, reverse=False, with_cell=False):
     """One direction of an LSTM layer from gate inputs (JAX
     ``_core_fwd_impl``).
 
-    xg: (B, T, 4H), ``x @ W_ih^T + b`` in original time order; w_hh_t:
-    (H, 4H), same dtype; ``reverse`` walks t = T-1 .. 0. Returns ``(h, c)``,
-    each (B, T, H) in the storage dtype; ``c`` is None unless ``with_cell``.
+    xg: (B, T, 4H), ``x @ W_ih^T + b`` in original time order, any batch
+    and time strides; w_hh_t: (H, 4H), same dtype; ``reverse`` walks
+    t = T-1 .. 0. Returns ``(h, c)``, each (B, T, H) in the storage dtype;
+    ``c`` is None unless ``with_cell``.
+
+    On a CUDA device, bfloat16 storage runs the gate-input form of the
+    clustered Hopper kernel launched for one direction
+    (``csrc/blstm_cluster_fwd.cuh``, geometry from :func:`cluster_geometry`
+    kind 'fwd_xg' with one direction); float32 storage, the tests' and
+    checks' mode, runs the first design (``csrc/blstm_common.cuh``).
     """
     B, T, H = _check_uni(xg, w_hh_t)
     if xg.device.type == 'cpu':
         return lstm_fwd_plain(xg, w_hh_t, reverse=reverse,
                               with_cell=with_cell)
-    bt = _launch_tile(xg, H, 2 * H, (w_hh_t,))
+    route = (_lstm_fwd_cluster if xg.dtype == torch.bfloat16
+             else _lstm_fwd_first)
+    out = route(xg, w_hh_t, reverse, with_cell)
+    lstm_fwd.launches += 1
+    return out
+
+
+def _uni_outputs(xg, H, with_cell):
+    B, T = xg.shape[:2]
     h = torch.empty(B, T, H, dtype=xg.dtype, device=xg.device)
-    c = torch.empty_like(h) if with_cell else None
+    return h, (torch.empty_like(h) if with_cell else None)
+
+
+def _lstm_fwd_first(xg, w_hh_t, reverse, with_cell):
+    """The first design of :func:`lstm_fwd` on a CUDA device
+    (``csrc/blstm_common.cuh``), in either storage dtype: the route of
+    float32."""
+    B, T, H = xg.shape[0], xg.shape[1], w_hh_t.shape[0]
+    bt = _launch_tile(xg, H, 2 * H, (w_hh_t,))
+    h, c = _uni_outputs(xg, H, with_cell)
     with torch.cuda.device(xg.device):
         err = _build.library().tssep_lstm_fwd(
             xg.data_ptr(), xg.stride(0), xg.stride(1), w_hh_t.data_ptr(),
@@ -1566,7 +1608,26 @@ def lstm_fwd(xg, w_hh_t, *, reverse=False, with_cell=False):
             int(xg.dtype == torch.bfloat16), bt,
             torch.cuda.current_stream(xg.device).cuda_stream)
     _raise_on(err, 'lstm_fwd')
-    lstm_fwd.launches += 1
+    return h, c
+
+
+def _lstm_fwd_cluster(xg, w_hh_t, reverse, with_cell):
+    """The bf16 route of :func:`lstm_fwd` on a CUDA device: the gate-input
+    forward on a grid of one direction."""
+    B, T, H = xg.shape[0], xg.shape[1], w_hh_t.shape[0]
+    _check_launch(xg, H, (w_hh_t,))
+    geo = _geometry('fwd_xg', B, 4 * H, H, xg.device, 'uni', directions=1)
+    whh_p = _pack(w_hh_t[None], 'fwd', geo, H)
+    cols = _xg_columns(H, geo.cluster, geo.units, xg.device, 1)
+    h, c = _uni_outputs(xg, H, with_cell)
+    with torch.cuda.device(xg.device):
+        err = _build.library().tssep_lstm_fwd_cluster(
+            xg.data_ptr(), xg.stride(0), xg.stride(1), whh_p.data_ptr(),
+            cols.data_ptr(), h.data_ptr(), c.data_ptr() if with_cell else None,
+            h.stride(0), h.stride(1), B, T, H, int(reverse), geo.cluster,
+            geo.units, geo.active, geo.row_tile, geo.chunk,
+            torch.cuda.current_stream(xg.device).cuda_stream)
+    _raise_on(err, 'lstm_fwd')
     return h, c
 
 
@@ -1577,9 +1638,15 @@ def lstm_bwd(xg, w_hh_t, h, c, dh, *, reverse=False):
     """The backward of :func:`lstm_fwd` (JAX ``_lstm_core_bwd``).
 
     xg, w_hh_t and ``reverse`` as for the forward; h, c: (B, T, H), the
-    forward's outputs; dh: (B, T, H) float32, the cotangent of h. Returns
-    ``(dxg, dw_hh_t)``: dxg (B, T, 4H) in the storage dtype and dw_hh_t
-    (H, 4H) float32.
+    forward's outputs; dh: (B, T, H) float32, the cotangent of h, any batch
+    and time strides. Returns ``(dxg, dw_hh_t)``: dxg (B, T, 4H) in the
+    storage dtype and dw_hh_t (H, 4H) float32.
+
+    On a CUDA device, bfloat16 storage runs the gate-input form of the
+    Hopper design launched for one direction (``csrc/blstm_cluster_bwd.cuh``:
+    the gate pre-activations as one tensor-core product, a clustered walk
+    that writes dxg, tensor-core weight sums); float32 storage, the tests'
+    and checks' mode, runs the first design (``csrc/blstm_bwd_common.cuh``).
     """
     B, T, H = _check_uni(xg, w_hh_t)
     for name, t in (('h', h), ('c', c)):
@@ -1589,6 +1656,18 @@ def lstm_bwd(xg, w_hh_t, h, c, dh, *, reverse=False):
         return lstm_bwd_plain(xg, w_hh_t, h, c, dh, reverse=reverse)
     if dh.stride(-1) != 1:
         raise ValueError('the last axis of dh must be contiguous')
+    route = (_lstm_bwd_cluster if xg.dtype == torch.bfloat16
+             else _lstm_bwd_first)
+    out = route(xg, w_hh_t, h, c, dh, reverse)
+    lstm_bwd.launches += 1
+    return out
+
+
+def _lstm_bwd_first(xg, w_hh_t, h, c, dh, reverse):
+    """The first design of :func:`lstm_bwd` on a CUDA device
+    (``csrc/blstm_bwd_common.cuh``), in either storage dtype: the route of
+    float32."""
+    B, T, H = xg.shape[0], xg.shape[1], w_hh_t.shape[0]
     bt = _launch_tile(xg, H, 7 * H, (w_hh_t, h, c))
     w_hh = w_hh_t.t().contiguous()
     dg = torch.empty(1, B, T, 4 * H, dtype=torch.float32, device=xg.device)
@@ -1603,7 +1682,50 @@ def lstm_bwd(xg, w_hh_t, h, c, dh, *, reverse=False):
             int(reverse), int(xg.dtype == torch.bfloat16), bt,
             torch.cuda.current_stream(xg.device).cuda_stream)
     _raise_on(err, 'lstm_bwd')
-    lstm_bwd.launches += 1
+    return dxg, dw
+
+
+#: The launches of the bf16 one-direction backward, in order, by their
+#: ``parts`` bit: those of the bidi backward, on one direction.
+LSTM_BWD_PARTS = BIDI_BWD_PARTS
+
+
+def _lstm_bwd_buffers(xg, H):
+    """The bf16 one-direction backward's workspace and outputs for gate
+    inputs xg (B, T, 4H): ``(dg, dxg, dw, ws)``, the f32 gate gradients
+    (1, B, T, 4H), dxg (B, T, 4H), dW_hh^T (H, 4H) and the weight sums'
+    split partials."""
+    B, T, _ = xg.shape
+    splits = gate_wgrad_splits(B * T, H, _sms(xg.device), outputs=1)
+    f32 = dict(dtype=torch.float32, device=xg.device)
+    return (torch.empty(1, B, T, 4 * H, **f32),
+            torch.empty(B, T, 4 * H, dtype=xg.dtype, device=xg.device),
+            torch.empty(H, 4 * H, **f32),
+            torch.empty(splits - 1, H, 4 * H, **f32))
+
+
+def _lstm_bwd_cluster(xg, w_hh_t, h, c, dh, reverse, parts=7, out=None):
+    """The bf16 route of :func:`lstm_bwd` on a CUDA device: the gate-input
+    backward's launches on one direction; ``parts`` picks them
+    (:data:`LSTM_BWD_PARTS`) and ``out`` gives the buffers of
+    :func:`_lstm_bwd_buffers` to reuse, so that each launch can be timed
+    alone."""
+    B, T, H = xg.shape[0], xg.shape[1], w_hh_t.shape[0]
+    _check_launch(xg, H, (w_hh_t, h, c))
+    geo = _geometry('bwd', B, 4 * H, H, xg.device, 'uni', directions=1)
+    wp = _pack_walk(w_hh_t[None], geo, H)
+    dg, dxg, dw, ws = _lstm_bwd_buffers(xg, H) if out is None else out
+    splits = ws.shape[0] + 1
+    with torch.cuda.device(xg.device):
+        err = _build.library().tssep_lstm_bwd_cluster(
+            xg.data_ptr(), xg.stride(0), xg.stride(1), w_hh_t.data_ptr(),
+            wp.data_ptr(), h.data_ptr(), c.data_ptr(), h.stride(0),
+            h.stride(1), dh.data_ptr(), dh.stride(0), dh.stride(1),
+            dg.data_ptr(), dxg.data_ptr(), dw.data_ptr(),
+            ws.data_ptr() if splits > 1 else None, B, T, H, int(reverse),
+            geo.cluster, geo.units, geo.active, geo.row_tile, geo.threads,
+            splits, parts, torch.cuda.current_stream(xg.device).cuda_stream)
+    _raise_on(err, 'lstm_bwd')
     return dxg, dw
 
 

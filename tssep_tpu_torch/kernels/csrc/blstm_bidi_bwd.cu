@@ -57,82 +57,11 @@ extern "C" int tssep_blstm_bidi_bwd_cluster(
     const void* xg, long long xg_sb, long long xg_st, const void* w_hh_t, const void* wp,
     const void* h, const void* c, long long s_sb, long long s_st, const void* dh, long long d_sb,
     long long d_st, void* dg, void* dxg, void* dw, void* ws, int B, int T, int H, int C, int U,
-    int nact, int bt, int threads, int splits, int parts, void* stream_) {
-  using namespace tssep::tc;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const long long rows = (long long)B * T;
-  if (splits < 1 || (splits > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
-  Rows r;
-  r.x = static_cast<const __nv_bfloat16*>(xg);
-  r.x_sb = xg_sb;
-  r.x_st = xg_st;
-  r.h = static_cast<const __nv_bfloat16*>(h);
-  r.s_sb = s_sb;
-  r.s_st = s_st;
-  r.B = B;
-  r.T = T;
-  r.F = 0;
-  r.H = H;
-  r.rows = rows;
-  r.divT = make_fastdiv((uint32_t)T);
-  r.aux = nullptr;
-  r.divS = make_fastdiv(1);
-  int err = 0;
-  if (parts & 1) {
-    GatesOp<true> op;
-    op.rows = r;
-    op.w_ih_t = nullptr;
-    op.w_hh_t = static_cast<const __nv_bfloat16*>(w_hh_t);
-    op.bias = nullptr;
-    op.dg = static_cast<float*>(dg);
-    op.M = rows;
-    op.N = 4 * H;
-    op.K = H;
-    err = launch_gemm(op, (int)rows, 4 * H, 2, stream);
-    if (err != 0) return err;
-  }
-  if (parts & 2) {
-    WalkArgs a;
-    a.wp = static_cast<const uint4*>(wp);
-    a.dg = static_cast<float*>(dg);
-    a.c = static_cast<const __nv_bfloat16*>(c);
-    a.s_sb = s_sb;
-    a.s_st = s_st;
-    a.dh = dh;
-    a.d_sb = d_sb;
-    a.d_st = d_st;
-    a.dxg = static_cast<__nv_bfloat16*>(dxg);
-    a.g_sb = (long long)T * 8 * H;
-    a.g_st = 8 * H;
-    a.B = B;
-    a.T = T;
-    a.H = H;
-    a.U = U;
-    a.nact = nact;
-    a.KH = (H + 15) / 16 * 16;
-    err = cluster_walk<float>(a, C, bt, threads, stream);
-    if (err != 0) return err;
-  }
-  if (parts & 4) {
-    WgradOp<> op;
-    op.rows = r;
-    op.dg = static_cast<const float*>(dg);
-    op.out = static_cast<float*>(dw);
-    op.ws = static_cast<float*>(ws);
-    op.K = rows;
-    op.kps = ((rows + splits - 1) / splits + kGK - 1) / kGK * kGK;
-    op.M = H;
-    op.N = 4 * H;
-    err = launch_gemm(op, H, 4 * H, 2 * splits, stream);
-    if (err != 0) return err;
-    if (splits > 1) {
-      const long long n = 2LL * op.M * op.N;
-      splitk_add_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-          static_cast<float*>(dw), static_cast<const float*>(ws), n, splits - 1);
-      err = (int)cudaGetLastError();
-    }
-  }
-  return err;
+    int nact, int bt, int threads, int splits, int parts, void* stream) {
+  return tssep::tc::gate_input_backward<2>(xg, xg_sb, xg_st, w_hh_t, wp, h, c, s_sb, s_st, dh,
+                                           d_sb, d_st, dg, dxg, dw, ws, B, T, H, 0b10, C, U, nact,
+                                           bt, threads, splits, parts,
+                                           static_cast<cudaStream_t>(stream));
 }
 
 // Clusters of C CTAs of the gate-input form's walk (dh in f32) at row tile

@@ -49,30 +49,9 @@ extern "C" int tssep_blstm_bidi_fwd_cluster(const void* xg, long long xg_sb, lon
                                             void* c_out, long long o_sb, long long o_st, int B,
                                             int T, int H, int C, int U, int nact, int bt, int tc,
                                             void* stream) {
-  tssep::tc::FwdArgs a;
-  a.x = static_cast<const __nv_bfloat16*>(xg);
-  a.x_sb = xg_sb;
-  a.x_st = xg_st;
-  a.wih = nullptr;
-  a.whh = static_cast<const uint4*>(whh_p);
-  a.bias = nullptr;
-  a.cols = static_cast<const int*>(cols);
-  a.aux = nullptr;
-  a.divS = tssep::tc::make_fastdiv(1);
-  a.h_out = static_cast<__nv_bfloat16*>(h_out);
-  a.c_out = static_cast<__nv_bfloat16*>(c_out);
-  a.o_sb = o_sb;
-  a.o_st = o_st;
-  a.B = B;
-  a.T = T;
-  a.F = 8 * H;
-  a.H = H;
-  a.U = U;
-  a.nact = nact;
-  a.KH = (H + 15) / 16 * 16;
-  a.KF = 0;
-  a.KX = 0;
-  return tssep::tc::cluster_fwd<true>(a, C, bt, tc, static_cast<cudaStream_t>(stream));
+  return tssep::tc::gate_input_fwd(xg, xg_sb, xg_st, whh_p, cols, h_out, c_out, o_sb, o_st, B,
+                                   T, H, 2, 0b10, C, U, nact, bt, tc,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // Clusters of C CTAs of the gate-input forward at row tile bt and chunk tc,

@@ -19,12 +19,18 @@
 //   block's boundary and the pre-activations of step 1 as it enters the
 //   block.
 // - gate inputs: the backward of the walk from gate inputs xg. Replaces,
-//   with blstm_bidi_bwd.cu, the TPU kernel `_bi_bwd_kernel` (:424). Three
-//   launches (1-3): the gate product sums over h_prev alone (K = H) and adds
-//   xg in its epilogue where the other form adds the bias, the walk also
-//   writes dxg (B, T, 8H) in the storage type from its f32 gate gradients
-//   and takes dh in f32, the weight sums are dW_hh^T alone, and there is no
-//   dx (dx, dW_ih and db are products of dxg outside the kernels).
+//   with blstm_bidi_bwd.cu, the TPU kernel `_bi_bwd_kernel` (:424), and,
+//   launched for one direction (`gate_input_backward<1>`), with
+//   lstm_bwd.cu, the TPU kernel `_bwd_kernel` (:82). Three launches (1-3):
+//   the gate product sums over h_prev alone (K = H) and adds xg in its
+//   epilogue where the other form adds the bias, the walk also writes dxg
+//   (B, T, dirs 4H) in the storage type from its f32 gate gradients and
+//   takes dh in f32, the weight sums are dW_hh^T alone, and there is no dx
+//   (dx, dW_ih and db are products of dxg outside the kernels).
+//
+// Every launch runs DIRS directions (2 but in the one-direction launch),
+// direction d walking t = T-1 .. 0 where bit d of the reverse mask `rev` is
+// set (0b10 for a bidirectional layer).
 //
 // 1. gates: every gate pre-activation at once, [x | h_prev] [W_ih^T; W_hh^T]
 //    + b for all (row, step) and both directions, on the tensor cores (bf16
@@ -250,7 +256,8 @@ int launch_gemm(const Op& op, int M, int N, int Z, cudaStream_t stream) {
 __device__ __forceinline__ __nv_bfloat16 bf16_zero() { return __float2bfloat16(0.f); }
 
 // The (B, T) rows of one direction's [x | h_prev | 1] (h_prev zero before
-// the walk's first step). In the gate-input form F is 0, x is xg and only
+// the walk's first step; h_prev at t + 1 where bit d of `rev` says
+// direction d walks backward). In the gate-input form F is 0, x is xg and only
 // the pointer to a row's xg is read (GatesOp's epilogue). With COND (the
 // conditioned form) x is xs, row b's x part is bf16(xs[b / S, t] * aux[b])
 // and aux is (B, F) contiguous; an element is then loaded as the pair
@@ -266,11 +273,12 @@ struct RowsT {
   int B, T, F, H;
   long long rows;
   FastDiv divT, divS;
+  int rev = 0b10;
 
   __device__ __forceinline__ RowPtr ptr(int d, long long k) const {
     if (k >= rows) return RowPtr{-1, -1, -1};
     const int b = (int)divT.div((uint32_t)k), t = (int)k - b * T;
-    const int tp = d ? t + 1 : t - 1;
+    const int tp = (rev >> d) & 1 ? t + 1 : t - 1;
     const int xb = COND ? (int)divS.div((uint32_t)b) : b;
     return RowPtr{xb * x_sb + t * x_st,
                   (tp >= 0 && tp < T) ? b * s_sb + tp * s_st + d * H : -1,
@@ -345,13 +353,16 @@ struct GatesOp {
   }
 };
 
-// out[d] (M, 4H) = [x | h_prev | 1]^T dg[d], M = F + H + 1 (projection
-// form) or H (gate-input form: dW_hh^T alone). With `splits` > 1 the B T
-// rows are cut into that many ranges of `kps` rows (blockIdx.z = 2 split +
-// d): split 0 writes out, split s > 0 the partial ws[s - 1], and
-// splitk_add_kernel then adds the partials to out in split order. With COND
-// x is the conditioned rows (RowsT).
-template <bool COND = false>
+// out[d] (M, 4H) = [x | h_prev | 1]^T dg[d] for each of DIRS directions,
+// M = F + H + 1 (projection form) or H (gate-input form: dW_hh^T alone).
+// With `splits` > 1 the B T rows are cut into that many ranges of `kps`
+// rows (blockIdx.z = DIRS split + d): split 0 writes out, split s > 0 the
+// partial ws[s - 1], and splitk_add_kernel then adds the partials to out in
+// split order. With COND x is the conditioned rows (RowsT). DIRS is a
+// template parameter, not a field: as a field, the division by it in each
+// element's load made the fully fused sums about 1.4x slower on an H100
+// (chip_smoke.py's parts_ms).
+template <bool COND = false, int DIRS = 2>
 struct WgradOp {
   static constexpr bool A_K_FAST = false, B_K_FAST = false;
   static constexpr int A_TERMS = 1, B_TERMS = 2, PASSES = 1, A_TABLE = 2, MIN_BLOCKS = 1;
@@ -362,25 +373,25 @@ struct WgradOp {
   long long K, kps;
   int M, N;
 
-  __device__ __forceinline__ long long k_begin(int z) const { return (z >> 1) * kps; }
+  __device__ __forceinline__ long long k_begin(int z) const { return (z / DIRS) * kps; }
   __device__ __forceinline__ long long k_end(int z) const {
     return k_begin(z) + kps < K ? k_begin(z) + kps : K;
   }
   __device__ __forceinline__ RowPtr row_ptr(int z, long long k) const {
-    return rows.ptr(z & 1, k);
+    return rows.ptr(z % DIRS, k);
   }
   __device__ __forceinline__ typename RowsT<COND>::Loaded a(int, int, long long m, long long k,
                                                           const RowPtr& r) const {
     return (m < M && k < K) ? rows.at(r, (int)m) : RowsT<COND>::zero();
   }
   __device__ __forceinline__ float b(int z, int, long long k, int n) const {
-    return (k < K && n < N) ? dg[((size_t)(z & 1) * K + k) * N + n] : 0.f;
+    return (k < K && n < N) ? dg[((size_t)(z % DIRS) * K + k) * N + n] : 0.f;
   }
   __device__ __forceinline__ void store(int z, int, long long m, int n, float v) const {
     if (m >= M || n >= N) return;
-    const int split = z >> 1;
-    float* dst = split == 0 ? out : ws + (size_t)(split - 1) * 2 * M * N;
-    dst[((size_t)(z & 1) * M + m) * N + n] = v;
+    const int split = z / DIRS;
+    float* dst = split == 0 ? out : ws + (size_t)(split - 1) * DIRS * M * N;
+    dst[((size_t)(z % DIRS) * M + m) * N + n] = v;
   }
 };
 
@@ -455,19 +466,22 @@ struct DcondOp {
 // ---- the walk ------------------------------------------------------------
 
 struct WalkArgs {
-  const uint4* wp;          // (2, C, KH/16, U/4, 32) fragments of W_hh^T's CTA slices
-  float* dg;                // (2, B, T, 4H): pre-activations in, gate gradients out
-  const __nv_bfloat16* c;   // (B, T, 2H), strides (s_sb, s_st, 1)
+  const uint4* wp;          // (dirs, C, KH/16, U/4, 32) fragments of W_hh^T's CTA slices
+  float* dg;                // (dirs, B, T, 4H): pre-activations in, gate gradients out
+  const __nv_bfloat16* c;   // (B, T, dirs H), strides (s_sb, s_st, 1)
   long long s_sb, s_st;
-  const void* dh;           // (B, T, 2H) of the walk's DH type, strides (d_sb, d_st, 1)
+  const void* dh;           // (B, T, dirs H) of the walk's DH type, strides (d_sb, d_st, 1)
   long long d_sb, d_st;
-  __nv_bfloat16* dxg;       // gate-input form: (B, T, 8H) strides (g_sb, g_st, 1); else null
+  __nv_bfloat16* dxg;       // gate-input form: (B, T, dirs 4H) strides (g_sb, g_st, 1); else null
   long long g_sb, g_st;
   int B, T, H, U, nact, KH;
   // spill form (no c): (2, ceil(T / spill), B, H) contiguous, the c carry
   // entering every spill'th step of each walk
   const __nv_bfloat16* cb = nullptr;
   int spill = 0;
+  // directions of the launch (grid z), and bit d set where direction d's
+  // forward walked t = T-1 .. 0: as FwdArgs
+  int dirs = 2, rev = 0b10;
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -499,7 +513,7 @@ __global__ void __launch_bounds__(kWalkMaxThreads, 1) cluster_walk_kernel(const 
   const int cta = (int)cluster_rank();
   const int C = gridDim.x;
   const int dir = blockIdx.z;
-  const bool rev = dir == 1;
+  const bool rev = (a.rev >> dir) & 1;
   const int b0 = blockIdx.y * BT;
   const int U = a.U, MT = U / 4, KSH = a.KH / 16, H = a.H, G = 4 * H;
   const int MS = 4 * U + 8;
@@ -732,12 +746,110 @@ template <typename DH, bool SPILL = false>
 inline int cluster_walk(const WalkArgs& a, int C, int BT, int threads, cudaStream_t stream) {
   const int MT = a.U / 4;
   if (threads > kWalkMaxThreads || threads % 32 != 0 || a.U % 4 != 0 || a.nact > C ||
-      a.U * BT > kWalkEpt * threads ||
+      a.U * BT > kWalkEpt * threads || a.dirs < 1 || a.dirs > 2 ||
       (SPILL && (a.cb == nullptr || a.spill < 1 || a.spill > kSpillMax)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = walk_shared_bytes(MT, a.KH, a.U, a.nact, BT, SPILL ? a.spill + 1 : 0);
-  const dim3 grid(C, (a.B + BT - 1) / BT, 2);
+  const dim3 grid(C, (a.B + BT - 1) / BT, a.dirs);
   return launch_clusters(walk_kernel<DH, SPILL>(BT), grid, threads, smem, C, stream, a);
+}
+
+// The gate-input form's three launches on one stream (1 gates, 2 walk, 4
+// weight sums: the bits of `parts`) on DIRS directions, bit d of `rev`
+// set where direction d walks backward: xg (B, T, DIRS 4H) bf16 with
+// strides (xg_sb, xg_st, 1); w_hh_t (DIRS, H, 4H) bf16; wp the walk's
+// fragments of it (kernels/blstm.py `_pack_walk`); h, c (B, T, DIRS H) bf16
+// with strides (s_sb, s_st, 1); dh (B, T, DIRS H) f32 with strides (d_sb,
+// d_st, 1). Writes the workspace dg (DIRS, B, T, 4H) f32, dxg (B, T, DIRS
+// 4H) bf16 and dw (DIRS, H, 4H) f32 = dW_hh^T per direction, all
+// contiguous. The walk runs in clusters of C CTAs of `threads` threads, U
+// units each, `nact` of them owning any, bt rows a tile. The weight sums
+// cut the B T rows into `splits` ranges, their partials in ws, which must
+// hold (splits - 1) x DIRS H 4H floats. Returns a cudaError_t.
+template <int DIRS>
+int gate_input_backward(const void* xg, long long xg_sb, long long xg_st, const void* w_hh_t,
+                        const void* wp, const void* h, const void* c, long long s_sb,
+                        long long s_st, const void* dh, long long d_sb, long long d_st, void* dg,
+                        void* dxg, void* dw, void* ws, int B, int T, int H, int rev, int C, int U,
+                        int nact, int bt, int threads, int splits, int parts,
+                        cudaStream_t stream) {
+  static_assert(DIRS == 1 || DIRS == 2, "one direction or both");
+  const long long rows = (long long)B * T;
+  if (splits < 1 || (splits > 1 && ws == nullptr)) return (int)cudaErrorInvalidValue;
+  Rows r;
+  r.x = static_cast<const __nv_bfloat16*>(xg);
+  r.x_sb = xg_sb;
+  r.x_st = xg_st;
+  r.h = static_cast<const __nv_bfloat16*>(h);
+  r.s_sb = s_sb;
+  r.s_st = s_st;
+  r.B = B;
+  r.T = T;
+  r.F = 0;
+  r.H = H;
+  r.rows = rows;
+  r.divT = make_fastdiv((uint32_t)T);
+  r.aux = nullptr;
+  r.divS = make_fastdiv(1);
+  r.rev = rev;
+  int err = 0;
+  if (parts & 1) {
+    GatesOp<true> op;
+    op.rows = r;
+    op.w_ih_t = nullptr;
+    op.w_hh_t = static_cast<const __nv_bfloat16*>(w_hh_t);
+    op.bias = nullptr;
+    op.dg = static_cast<float*>(dg);
+    op.M = rows;
+    op.N = 4 * H;
+    op.K = H;
+    err = launch_gemm(op, (int)rows, 4 * H, DIRS, stream);
+    if (err != 0) return err;
+  }
+  if (parts & 2) {
+    WalkArgs a;
+    a.wp = static_cast<const uint4*>(wp);
+    a.dg = static_cast<float*>(dg);
+    a.c = static_cast<const __nv_bfloat16*>(c);
+    a.s_sb = s_sb;
+    a.s_st = s_st;
+    a.dh = dh;
+    a.d_sb = d_sb;
+    a.d_st = d_st;
+    a.dxg = static_cast<__nv_bfloat16*>(dxg);
+    a.g_sb = (long long)T * DIRS * 4 * H;
+    a.g_st = DIRS * 4 * H;
+    a.B = B;
+    a.T = T;
+    a.H = H;
+    a.U = U;
+    a.nact = nact;
+    a.KH = (H + 15) / 16 * 16;
+    a.dirs = DIRS;
+    a.rev = rev;
+    err = cluster_walk<float>(a, C, bt, threads, stream);
+    if (err != 0) return err;
+  }
+  if (parts & 4) {
+    WgradOp<false, DIRS> op;
+    op.rows = r;
+    op.dg = static_cast<const float*>(dg);
+    op.out = static_cast<float*>(dw);
+    op.ws = static_cast<float*>(ws);
+    op.K = rows;
+    op.kps = ((rows + splits - 1) / splits + kGK - 1) / kGK * kGK;
+    op.M = H;
+    op.N = 4 * H;
+    err = launch_gemm(op, H, 4 * H, DIRS * splits, stream);
+    if (err != 0) return err;
+    if (splits > 1) {
+      const long long n = (long long)DIRS * op.M * op.N;
+      splitk_add_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+          static_cast<float*>(dw), static_cast<const float*>(ws), n, splits - 1);
+      err = (int)cudaGetLastError();
+    }
+  }
+  return err;
 }
 
 // The projection form's four launches on one stream (1 gates, 2 walk,

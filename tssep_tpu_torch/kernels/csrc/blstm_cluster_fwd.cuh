@@ -11,7 +11,9 @@
 //   `_ffc_fwd_kernel` (:1656).
 // - gate inputs (XG true): the walk from gate inputs xg (B, T, 8H) computed
 //   outside. Replaces, with blstm_bidi_fwd.cu, the TPU kernel
-//   `_bi_fwd_kernel` (tssep_tpu/kernels/blstm.py:374).
+//   `_bi_fwd_kernel` (tssep_tpu/kernels/blstm.py:374); launched for one
+//   direction (FwdArgs::dirs 1, xg (B, T, 4H)), with lstm_fwd.cu, the TPU
+//   kernel `_fwd_kernel` (:52).
 // The projection form also runs the spill forward (blstm_fullfused_spill_fwd.cu,
 // replacing `_ffs_fwd_kernel` :1228): given a boundary buffer (FwdArgs::cb)
 // instead of c, the consumers write the c carry entering every spill'th step
@@ -60,8 +62,9 @@
 //     (the columns of one gate are 2-byte aligned only where H is odd). With
 //     no x staging and no W_ih stream, the chunk is longer (up to 8 steps,
 //     64 row-steps), so the loads of a chunk have several steps to land.
-// The reverse direction walks t = T-1 .. 0 over x (or xg) in place; no time
-// padding, no flipped copy. The launch geometry (C, U, BT, TC, the x block
+// A launch runs FwdArgs::dirs directions (grid z), direction d walking
+// t = T-1 .. 0 where bit d of FwdArgs::rev is set (a bidirectional layer:
+// direction 1), over x (or xg) in place; no time padding, no flipped copy. The launch geometry (C, U, BT, TC, the x block
 // KX) comes from `cluster_geometry` in kernels/blstm.py ('fwd', 'fwd_cond' and
 // 'fwd_xg'); the shared-memory formula below is the same as its `_fwd_shared`.
 #pragma once
@@ -73,15 +76,15 @@ namespace {
 namespace tc {
 
 struct FwdArgs {
-  const __nv_bfloat16* x;  // (B, T, F), strides (x_sb, x_st, 1); or xg (B, T, 8H)
+  const __nv_bfloat16* x;  // (B, T, F), strides (x_sb, x_st, 1); or xg (B, T, dirs 4H)
   long long x_sb, x_st;
-  const uint4* wih;        // (2, C, U/4, KF/16, 32) fragments of W_ih^T slices
-  const uint4* whh;        // (2, C, U/4, KH/16, 32) fragments of W_hh^T slices
-  const float* bias;       // (2, C, 4U) in local gate-row order
-  const int* cols;         // gate inputs: (2, C, 4U) xg column of each local gate row, -1 padding
+  const uint4* wih;        // (dirs, C, U/4, KF/16, 32) fragments of W_ih^T slices
+  const uint4* whh;        // (dirs, C, U/4, KH/16, 32) fragments of W_hh^T slices
+  const float* bias;       // (dirs, C, 4U) in local gate-row order
+  const int* cols;         // gate inputs: (dirs, C, 4U) xg column of each local gate row, -1 padding
   const __nv_bfloat16* aux;  // conditioned: (B, F) contiguous, one row per layer row
   FastDiv divS;            // conditioned: layer row b reads x row b / S
-  __nv_bfloat16* h_out;    // (B, T, 2H), strides (o_sb, o_st, 1)
+  __nv_bfloat16* h_out;    // (B, T, dirs H), strides (o_sb, o_st, 1)
   __nv_bfloat16* c_out;    // the same, or null
   long long o_sb, o_st;
   // spill form: (2, ceil(T / spill), B, H) contiguous, the c carry
@@ -91,6 +94,9 @@ struct FwdArgs {
   int B, T, F, H;          // B: the layer's rows
   int U, nact;             // units per CTA; CTAs that own units
   int KH, KF, KX;          // H and F rounded up to 16; F's block per staging
+  // directions of the launch (grid z), and bit d set where direction d
+  // walks t = T-1 .. 0: a bidirectional layer 2 and 0b10, one direction 1
+  int dirs = 2, rev = 0b10;
 };
 
 constexpr int kFwdRing = 2;          // chunks in the ring
@@ -129,7 +135,7 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 1) cluster_fwd_kernel(const Fw
   const int cta = (int)cluster_rank();
   const int C = gridDim.x;
   const int dir = blockIdx.z;
-  const bool rev = dir == 1;
+  const bool rev = (a.rev >> dir) & 1;
   const int b0 = blockIdx.y * BT;
   const int MT = a.U / 4;
   const int KSH = a.KH / 16, KSF = a.KF / 16;
@@ -462,17 +468,56 @@ inline FwdKernel fwd_kernel(int BT, int TC) {
   return nullptr;
 }
 
-// One layer, both directions, clusters of C CTAs. Returns a cudaError_t.
+// One layer, its a.dirs directions, clusters of C CTAs. Returns a
+// cudaError_t.
 template <bool XG, bool COND = false>
 inline int cluster_fwd(const FwdArgs& a, int C, int BT, int TC, cudaStream_t stream) {
   const int MT = a.U / 4;
   const int threads = 2 * MT * 32;
   if (threads > kFwdMaxThreads || a.U % 4 != 0 || a.nact > C || BT % 8 != 0 ||
-      (COND && a.aux == nullptr))
+      (COND && a.aux == nullptr) || a.dirs < 1 || a.dirs > 2)
     return (int)cudaErrorInvalidValue;
   const size_t smem = fwd_shared_bytes(MT, a.KH, BT, TC, a.KX, XG, COND ? a.KF : 0);
-  const dim3 grid(C, (a.B + BT - 1) / BT, 2);
+  const dim3 grid(C, (a.B + BT - 1) / BT, a.dirs);
   return launch_clusters(fwd_kernel<XG, COND>(BT, TC), grid, threads, smem, C, stream, a);
+}
+
+// The gate-input form on `dirs` directions, bit d of `rev` set where
+// direction d walks backward: xg (B, T, dirs 4H) bf16 with strides
+// (xg_sb, xg_st, 1), direction d's gates in columns [4H d, 4H (d + 1));
+// whh_p and cols as blstm_bidi_fwd.cu's entry point documents them, for
+// `dirs` directions; h_out, c_out (B, T, dirs H) with strides (o_sb, o_st,
+// 1), c_out may be null. Returns a cudaError_t.
+inline int gate_input_fwd(const void* xg, long long xg_sb, long long xg_st, const void* whh_p,
+                          const void* cols, void* h_out, void* c_out, long long o_sb,
+                          long long o_st, int B, int T, int H, int dirs, int rev, int C, int U,
+                          int nact, int bt, int tc, cudaStream_t stream) {
+  FwdArgs a;
+  a.x = static_cast<const __nv_bfloat16*>(xg);
+  a.x_sb = xg_sb;
+  a.x_st = xg_st;
+  a.wih = nullptr;
+  a.whh = static_cast<const uint4*>(whh_p);
+  a.bias = nullptr;
+  a.cols = static_cast<const int*>(cols);
+  a.aux = nullptr;
+  a.divS = make_fastdiv(1);
+  a.h_out = static_cast<__nv_bfloat16*>(h_out);
+  a.c_out = static_cast<__nv_bfloat16*>(c_out);
+  a.o_sb = o_sb;
+  a.o_st = o_st;
+  a.B = B;
+  a.T = T;
+  a.F = dirs * 4 * H;
+  a.H = H;
+  a.U = U;
+  a.nact = nact;
+  a.KH = (H + 15) / 16 * 16;
+  a.KF = 0;
+  a.KX = 0;
+  a.dirs = dirs;
+  a.rev = rev;
+  return cluster_fwd<true>(a, C, bt, tc, stream);
 }
 
 }  // namespace tc

@@ -7,14 +7,23 @@
 // the kernel; the TPU ran the reverse direction on a time-flipped copy of xg,
 // this kernel reads xg in place and walks t = T-1 .. 0 (reverse = 1).
 //
-// The body is the bidi forward's (blstm_common.cuh) on a grid of one
-// direction: one block per batch tile, thread j owns hidden unit j.
-//
 // Bound on an H100 at the flagship's birnn2 (16 or 256 rows, T 316, H 300):
 // bytes. It must read xg (4H per row and step) and write h, about 0.25 GB in
 // bf16 at 256 rows, 0.07 ms at 3.35 TB/s; its 0.06 TFLOP would take 0.06 ms
-// on the tensor cores. Like the bidi forward it is bound by its serial chain
-// of 316 steps instead, each streaming W_hh^T (720 KB in bf16) from L2.
+// on the tensor cores. At the served 16 rows the serial chain of 316 steps
+// bounds it, each a product with W_hh that waits for the previous step's h.
+//
+// Two routes, by storage type:
+// - bf16, the served and trained one: the gate-input form of the Hopper
+//   design of blstm_cluster_fwd.cuh launched for one direction (the bidi
+//   forward's kernel on a grid of one direction, its reverse rule a flag):
+//   W_hh^T split over a thread-block cluster and resident in shared memory,
+//   tensor-core products, h exchanged through distributed shared memory, xg
+//   copied ahead of the walk by producer warps.
+// - f32, the tests' and checks' mode: the first design (blstm_common.cuh)
+//   on a grid of one direction, one block per batch tile, thread j owning
+//   hidden unit j, W_hh streamed from L2 every step.
+#include "blstm_cluster_fwd.cuh"
 #include "blstm_common.cuh"
 
 // xg (B, T, 4H) with strides (xg_sb, xg_st, 1); w_hh_t (H, 4H); h_out, c_out
@@ -28,4 +37,30 @@ extern "C" int tssep_lstm_fwd(const void* xg, long long xg_sb, long long xg_st,
   return tssep::dispatch<false, false>(bf16, bt, xg, xg_sb, xg_st, 0, nullptr, 1, nullptr,
                                        nullptr, w_hh_t, h_out, c_out, o_sb, o_st, B, T, H, stream,
                                        1, reverse);
+}
+
+// The bf16 route. xg (B, T, 4H) bf16 with strides (xg_sb, xg_st, 1); whh_p:
+// the CTA slices of W_hh^T (1, H, 4H) in fragment order (kernels/blstm.py
+// `_pack`, kind 'fwd'); cols (1, C, 4U) int32: the xg column of each CTA's
+// local gate rows, -1 for a padded unit (`_xg_columns`, one direction);
+// h_out, c_out (B, T, H) bf16 with strides (o_sb, o_st, 1), c_out may be
+// null; reverse walks t = T-1 .. 0. C CTAs a cluster, each owning U units,
+// the first `nact` of them owning any; bt rows a tile, tc steps a chunk.
+// Returns a cudaError_t.
+extern "C" int tssep_lstm_fwd_cluster(const void* xg, long long xg_sb, long long xg_st,
+                                      const void* whh_p, const void* cols, void* h_out,
+                                      void* c_out, long long o_sb, long long o_st, int B, int T,
+                                      int H, int reverse, int C, int U, int nact, int bt, int tc,
+                                      void* stream) {
+  return tssep::tc::gate_input_fwd(xg, xg_sb, xg_st, whh_p, cols, h_out, c_out, o_sb, o_st, B,
+                                   T, H, 1, reverse ? 1 : 0, C, U, nact, bt, tc,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of C CTAs of this source's gate-input forward at row tile bt and
+// chunk tc, each of `threads` threads and `smem` shared bytes, that the card
+// holds at once, into `slots`. Returns a cudaError_t.
+extern "C" int tssep_lstm_fwd_slots(int C, int bt, int tc, int threads, int smem, int* slots) {
+  using namespace tssep::tc;
+  return cluster_slots(fwd_kernel<true>(bt, tc), threads, (size_t)smem, C, slots);
 }
