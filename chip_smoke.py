@@ -15,7 +15,10 @@ Phases, each of which must pass:
    and bound: the forward kernels at a ragged small shape, at the shapes of
    a served request (batch 16) and at the flagship training shapes (batch
    256); the backward kernels at a ragged shape and at the training shapes
-   of batch 16 and of batch 256. Every pair runs, in bfloat16, the
+   of batch 16 and of batch 256; the fully fused pair also at the toy
+   recipe's ``pre_net`` (16 rows, F 553) and ``birnn1`` at 2 permutation
+   trials (256 rows, F 320; its ``birnn0``, 256 rows at F 513, is the
+   batch-256 ``pre_net`` row). Every pair runs, in bfloat16, the
    clustered Hopper kernels (``csrc/blstm_cluster_*.cuh``; the bidi pair in
    their gate-input form, the one-direction pair in that form on a grid of
    one direction, the conditioned pair in their conditioned form, the
@@ -68,7 +71,16 @@ Phases, each of which must pass:
 12. training with ``bidi=False``: 3 steps with ``birnn2`` through the
     unidirectional pair;
 13. training with ``fullfuse=False, bidi=False``: 2 steps, every direction
-    of every layer through the unidirectional pair.
+    of every layer through the unidirectional pair;
+14. the toy recipe's TS-VAD stage (``tssep_tpu/exp/init_cfg_common.yaml``
+    with ``init_cfg_tsvad.yaml``: MFCC40 ⊕ Log1pMaxNorm features, 553 wide,
+    2 permutation trials, 't' resolution, ``VADSigmoidBCE``) at the
+    flagship's widths, built by ``Model.from_config``: 3 requests of batch
+    16 served, then 3 training steps at batch 16 on the simulator's ``Vad``
+    targets, each against the plain versions;
+15. the recipe's TS-SEP stage (the same model, 'tf' and LogMAE) served;
+16. the flagship with ``SoudenMVDR`` (nmask 2, a head twice as wide) served
+    on requests of 7 channels.
 
 Before them a ``cond_fuse``, a ``spill`` and a ``bidi=False`` line sum up
 the conditioned, the spill and the one-direction pair in bfloat16 at batch
@@ -115,6 +127,45 @@ FLAGSHIP = {
         'output_resolution': 'tf',
     },
 }
+#: The toy recipe's features (``tssep_tpu/exp/init_cfg_common.yaml``, copied:
+#: the card's machine may lack a YAML reader): MFCC40 ⊕ Log1pMaxNorm.
+RECIPE_FE = {
+    'factory': 'ConcatenatedSTFTFeatures',
+    'fe1': {'factory': 'MFCC', 'size': 1024, 'shift': 256,
+            'window_length': 1024, 'pad': True, 'fading': True,
+            'output_size': 40, 'window': 'hann', 'sample_rate': 16000,
+            'n_mfcc': 40, 'dct_norm': 'ortho', 'log_mels': False,
+            'f_min': 40, 'f_max': -400, 'n_mels': 40, 'mel_norm': None,
+            'mel_scale': 'htk'},
+    'fe2': {'factory': 'Log1pMaxNormAbsSTFT', 'size': 1024, 'shift': 256,
+            'window_length': 1024, 'pad': True, 'fading': True,
+            'output_size': 513, 'window': 'hann', 'statistics_axis': 'tf'},
+    'output_size': 553, 'size': 1024, 'shift': 256, 'window': 'hann',
+    'window_length': 1024, 'pad': True, 'fading': True}
+#: The recipe's TS-VAD stage (``init_cfg_tsvad.yaml``) at the flagship's
+#: widths (units 300, projs 320 where the recipe has 40 and 42).
+TSVAD = {
+    'fe': RECIPE_FE,
+    'mask_estimator': {
+        'idim': 553, 'odim': 513, 'layers': 3, 'units': 300, 'projs': 320,
+        'dropout': 0, 'nmask': 1, 'pre_net': 'RNNP', 'aux_net': None,
+        'aux_net_output_size': 513, 'combination': 'mul', 'ts_vad': 8,
+        'random_speaker_order': True, 'num_averaged_permutations': 2,
+        'input_normalizer': None, 'aux_normalizer': None,
+        'explicit_vad': False, 'output_resolution': 't'},
+    'enhancer': {'factory': 'Masking'},
+    'loss': {'factory': 'VADSigmoidBCE', 'target': 'Vad', 'pit': False,
+             'magnitude_threshold': 0.05},
+}
+#: The recipe's TS-SEP stage (``init_cfg_tssep.yaml``): 'tf' and LogMAE.
+TSSEP_RECIPE = dict(
+    TSVAD, mask_estimator=dict(TSVAD['mask_estimator'],
+                               output_resolution='tf'),
+    loss={'factory': 'LogMAE', 'target': 'speaker_reverberation_early_ch0'})
+#: The flagship with the MVDR enhancer (nmask 2), served on the LibriCSS
+#: array's 7 channels.
+MVDR = dict(FLAGSHIP, enhancer={'factory': 'SoudenMVDR'})
+MVDR_CHANNELS = 7
 SAMPLES, FRAMES, BINS, SPEAKERS, HIDDEN = 80_000, 316, 513, 8, 300
 SERVE_BATCH, REQUESTS = 16, 3
 TRAIN_BATCH, TRAIN_STEPS = 16, 3
@@ -207,6 +258,11 @@ SOURCES = {
                  'tssep_tpu/kernels/blstm.py:82'),
 }
 KERNELS = tuple(SOURCES)
+#: The toy recipe's new shapes of the fully fused pair, at batch 16: pre_net on
+#: the 553 features, birnn1 at 2 permutation trials (256 rows; birnn0 there is
+#: the 'pre_net' row at batch 256).
+RECIPE_CASES = [('recipe pre_net', 16, FRAMES, 553, HIDDEN),
+                ('recipe birnn1', 16 * 2 * SPEAKERS, FRAMES, 320, HIDDEN)]
 #: (label, B, T, F, H) of the fully fused kernel's calls and (label, B, T, H)
 #: of the bidi kernel's. The 'serve' rows are one request of batch 16, the
 #: others the flagship training shapes at batch 256.
@@ -216,7 +272,8 @@ FULLFUSED_CASES = [('ragged', 13, 23, 12, 16),
                    ('serve birnn1', 16 * SPEAKERS, FRAMES, 320, HIDDEN),
                    ('pre_net', 256, FRAMES, BINS, HIDDEN),
                    ('birnn0', 256 * SPEAKERS, FRAMES, BINS, HIDDEN),
-                   ('birnn1', 256 * SPEAKERS, FRAMES, 320, HIDDEN)]
+                   ('birnn1', 256 * SPEAKERS, FRAMES, 320, HIDDEN),
+                   *RECIPE_CASES]
 #: 'fullfuse=False' rows are the folded layers' calls on that path.
 BIDI_CASES = [('ragged', 13, 23, 16),
               ('serve birnn2', 16, FRAMES, HIDDEN),
@@ -230,7 +287,8 @@ FULLFUSED_BWD_CASES = [('ragged', 13, 23, 12, 16),
                        ('train birnn1', 16 * SPEAKERS, FRAMES, 320, HIDDEN),
                        ('pre_net', 256, FRAMES, BINS, HIDDEN),
                        ('birnn0', 256 * SPEAKERS, FRAMES, BINS, HIDDEN),
-                       ('birnn1', 256 * SPEAKERS, FRAMES, 320, HIDDEN)]
+                       ('birnn1', 256 * SPEAKERS, FRAMES, 320, HIDDEN),
+                       *RECIPE_CASES]
 BIDI_BWD_CASES = [('ragged', 13, 23, 16),
                   ('train birnn2', 16, FRAMES, HIDDEN),
                   ('birnn2', 256, FRAMES, HIDDEN),
@@ -1159,11 +1217,11 @@ def phase_kernels():
     return rows
 
 
-def make_request(gen, batch):
+def make_request(gen, batch, channels=1):
     """One request in ``DeviceMeetingSimulator.generate``'s layout."""
     return {
-        'observation': 0.1 * torch.randn(batch, 1, SAMPLES, generator=gen,
-                                         device='cuda'),
+        'observation': 0.1 * torch.randn(batch, channels, SAMPLES,
+                                         generator=gen, device='cuda'),
         'auxInput': torch.rand(batch, SPEAKERS, BINS, generator=gen,
                                device='cuda'),
         'reference_channel': 0,
@@ -1210,8 +1268,13 @@ def _agreement(model, ex, dtype, reference=None, what='plain versions'):
 
 def _flagship(storage_dtype=BF16, trials=1, **switches):
     """The flagship model with random weights from seed 0."""
-    cfg = dict(FLAGSHIP, mask_estimator=dict(
-        FLAGSHIP['mask_estimator'], num_averaged_permutations=trials))
+    return _model(dict(FLAGSHIP, mask_estimator=dict(
+        FLAGSHIP['mask_estimator'], num_averaged_permutations=trials)),
+        storage_dtype, **switches)
+
+
+def _model(cfg, storage_dtype=BF16, **switches):
+    """The model of ``cfg`` with random weights from seed 0."""
     model = Model.from_config(cfg, storage_dtype=storage_dtype,
                               device='cuda', **switches)
     return model.init_params(torch.Generator().manual_seed(0))
@@ -1227,7 +1290,8 @@ def _serve(model, requests):
         out = model(ex)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-        check(out.mask.shape == (SERVE_BATCH, SPEAKERS, 1, FRAMES, BINS),
+        nmask = model.mask_estimator.nmask
+        check(out.mask.shape == (SERVE_BATCH, SPEAKERS, nmask, FRAMES, BINS),
               f'mask shape {tuple(out.mask.shape)}')
         check(out.time_estimate.shape == (SERVE_BATCH, SPEAKERS, SAMPLES),
               f'waveform shape {tuple(out.time_estimate.shape)}')
@@ -1252,10 +1316,11 @@ def _peak_mib(fn):
     return (torch.cuda.max_memory_allocated() - before) / 2 ** 20
 
 
-def _requests():
+def _requests(channels=1):
     """A warm-up request and ``REQUESTS`` requests, the same every call."""
     gen = torch.Generator(device='cuda').manual_seed(1)
-    return [make_request(gen, SERVE_BATCH) for _ in range(1 + REQUESTS)]
+    return [make_request(gen, SERVE_BATCH, channels)
+            for _ in range(1 + REQUESTS)]
 
 
 def phase_serving():
@@ -1456,11 +1521,11 @@ def phase_training(rows):
             'agreement': agree}
 
 
-def _train_checks(model, batch, label, **switches):
+def _train_checks(model, batch, label, cfg=FLAGSHIP, **switches):
     """One step's loss and gradients against the plain versions, in
     bfloat16 and in float32 storage, on ``model``'s current weights."""
     agree = {'bfloat16': _train_agreement(model, batch, BF16)}
-    model32 = _flagship(F32, **switches)
+    model32 = _model(cfg, F32, **switches)
     model32.load_state_dict(model.state_dict())
     agree['float32'] = _train_agreement(model32, batch, F32)
     log(f'{label}: one step against the plain versions agrees')
@@ -1534,6 +1599,67 @@ def phase_training_switch(label, steps, per_step, **switches):
             'default': _peak_mib(lambda: _step_grads(base, batch, False))}
     log(f'{label}: peak memory of one step\'s forward and backward at batch '
         f'{TRAIN_BATCH} over the weights (MiB): {json.dumps(peak)}')
+    return {'launches': launches, 'losses': losses, 'step_ms': step_ms,
+            'gen_ms': gen_ms, 'split_profiler': split, 'peak_mib': peak,
+            'agreement': agree}
+
+
+#: Launches of one served request or training step of the default path
+#: (the flagship's, the recipe's stages', the MVDR model's): pre_net, birnn0
+#: and birnn1 fully fused (at the recipe's 2 trials birnn0 and birnn1 on
+#: twice the rows), the stacked birnn2 through the bidi pair.
+PER_REQUEST = {'blstm_fullfused_fwd': 3, 'blstm_bidi_fwd': 1}
+PER_STEP = dict(PER_REQUEST, blstm_fullfused_bwd=3, blstm_bidi_bwd=1)
+
+
+def phase_serving_model(label, cfg, per_request, channels=1):
+    """``cfg``'s model serves ``REQUESTS`` requests of batch 16 through the
+    kernels ``per_request`` names, its masks and waveforms against the plain
+    versions in bfloat16 and float32 storage; the peak memory of one
+    request."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _model(cfg)
+    warm, *requests = _requests(channels)
+    model(warm)
+    torch.cuda.synchronize()
+    times, launches = _serve(model, requests)
+    log(f'{label}: {REQUESTS} requests of batch {SERVE_BATCH}, '
+        f'{channels} channel(s), ms each {[round(t, 2) for t in times]}, '
+        f'launches {launches}')
+    check(launches == _expect(per_request, REQUESTS),
+          f'{label}: per request {per_request}, got {launches}')
+    agree = {'plain': _agreement(model, requests[0], BF16),
+             'plain f32': _agreement(_model(cfg, F32), requests[0], F32)}
+    peak = _peak_mib(lambda: model(requests[0]))
+    log(f'{label}: peak memory of one request of batch {SERVE_BATCH} over '
+        f'the weights (MiB): {peak:.2f}')
+    return {'launches': launches, 'ms': times, 'peak_mib': peak,
+            'agreement': agree}
+
+
+def phase_training_model(label, cfg, per_step):
+    """``cfg``'s model trains ``TRAIN_STEPS`` steps at batch 16 on the
+    simulator's batches through the kernels ``per_step`` names; one profiled
+    step; one step's loss and gradients against the plain versions; the
+    peak memory of one step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _model(cfg)
+    trainer, data, losses, launches = _train(model, TRAIN_STEPS, per_step,
+                                             label)
+    gen_ms, step_ms, batch = _step_times(trainer, data, TRAIN_STEPS, label)
+    try:
+        split = _profile_step(trainer, batch)
+    except (RuntimeError, AttributeError) as exc:
+        split = None
+        log(f'{label}: profiler failed: {exc}')
+    log(f'{label}: step split from torch.profiler (ms): '
+        f'{json.dumps(split) if split else "not measured"}')
+    agree = _train_checks(model, batch, label, cfg=cfg)
+    peak = _peak_mib(lambda: _step_grads(model, batch, False))
+    log(f'{label}: peak memory of one step\'s forward and backward at batch '
+        f'{TRAIN_BATCH} over the weights (MiB): {peak:.2f}')
     return {'launches': launches, 'losses': losses, 'step_ms': step_ms,
             'gen_ms': gen_ms, 'split_profiler': split, 'peak_mib': peak,
             'agreement': agree}
@@ -1654,6 +1780,17 @@ def main():
              lambda label: phase_training_switch(
                  label, 2, {'lstm_fwd': 8, 'lstm_bwd': 8}, fullfuse=False,
                  bidi=False))):
+        switched[label] = run(label)
+        log(f'-- {label} done at {time.perf_counter() - t0:.1f} s')
+    for label, run in (
+            ('serve tsvad', lambda label: phase_serving_model(
+                label, TSVAD, PER_REQUEST)),
+            ('train tsvad', lambda label: phase_training_model(
+                label, TSVAD, PER_STEP)),
+            ('serve tssep recipe', lambda label: phase_serving_model(
+                label, TSSEP_RECIPE, PER_REQUEST)),
+            ('serve mvdr', lambda label: phase_serving_model(
+                label, MVDR, PER_REQUEST, MVDR_CHANNELS))):
         switched[label] = run(label)
         log(f'-- {label} done at {time.perf_counter() - t0:.1f} s')
     log(json.dumps({'serving cond_fuse': serving_cond, 'training': training,

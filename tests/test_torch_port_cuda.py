@@ -56,7 +56,7 @@ def _uniform(gen, shape, bound, dtype):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('B,T,F,H', [(13, 23, 12, 16), (3, 1, 40, 300),
-                                     (70, 9, 513, 300)])
+                                     (70, 9, 513, 300), (16, 31, 553, 300)])
 def test_fullfused_kernel_matches_plain(gen, dtype, B, T, F, H):
     x = torch.randn(B, T, F, generator=gen, device='cuda').to(dtype)
     w_ih_t = _uniform(gen, (2, F, 4 * H), H ** -0.5, dtype)
@@ -118,7 +118,7 @@ def _fullfused_bwd_inputs(gen, dtype, B, T, F, H):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('B,T,F,H', [(13, 23, 12, 16), (3, 1, 40, 300),
-                                     (70, 9, 513, 300)])
+                                     (70, 9, 513, 300), (16, 31, 553, 300)])
 def test_fullfused_bwd_kernel_matches_plain(gen, dtype, B, T, F, H):
     args = _fullfused_bwd_inputs(gen, dtype, B, T, F, H)
     before = kb.blstm_fullfused_bwd.launches
@@ -294,10 +294,14 @@ def test_lstm_strided_gate_inputs_read_in_place(gen):
 # with CTAs that own no unit, H 300 as served and H 512 on a 16-CTA cluster;
 # F 12 to 2048 (x staged in blocks); 1 row, 13, 16 and 128 rows (the served
 # tiles of pre_net and birnn0) and 300 rows (more than one wave at H 512);
-# T 1, 2 and 316.
+# T 1, 2 and 316; the toy recipe's pre_net (F 553, MFCC40 + 513 bins, x
+# staged in one block of 560) and its birnn0 and birnn1 at 2 permutation
+# trials (256 rows: 16 clusters of 8, two waves of the card's 15).
 CLUSTER_CASES = [(1, 1, 12, 16), (13, 2, 513, 37), (13, 316, 12, 300),
                  (16, 316, 513, 300), (128, 316, 513, 300),
-                 (300, 9, 2048, 512), (300, 2, 320, 300)]
+                 (300, 9, 2048, 512), (300, 2, 320, 300),
+                 (16, 316, 553, 300), (256, 316, 513, 300),
+                 (256, 316, 320, 300)]
 CLUSTER_FWD_ATOL = 1.6e-2
 CLUSTER_BWD_RTOL = 5e-3
 

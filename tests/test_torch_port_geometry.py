@@ -135,6 +135,26 @@ def test_geometry_at_flagship_shapes():
     assert kb.cluster_geometry('fwd', 128, 513, 300).shared == 192528
 
 
+def test_geometry_at_recipe_shapes():
+    """The toy recipe's fully fused layers (``tssep_tpu/exp/
+    init_cfg_common.yaml``, H 300 at flagship width): pre_net on its 553
+    features at 16 rows stages x in one block of KF 560 and fits one wave of
+    4 clusters; birnn0 at 2 permutation trials (256 rows) takes 32-row tiles,
+    16 clusters of 8 where the card holds 15: two waves, forward and
+    backward alike."""
+    for kind in ('fwd', 'bwd'):
+        geo = kb.cluster_geometry(kind, 16, 553, 300, slots=_h100_slots)
+        _check(geo, 16, 553, 300)
+        assert (geo.cluster, geo.row_tile, geo.clusters, geo.waves) == (
+            8, 8, 4, 1)
+        assert geo.k_block == (560 if kind == 'fwd' else 0)
+        geo = kb.cluster_geometry(kind, 256, 513, 300, slots=_h100_slots)
+        _check(geo, 256, 513, 300)
+        assert (geo.cluster, geo.row_tile, geo.tiles, geo.clusters,
+                geo.clusters_per_wave, geo.waves) == (8, 32, 8, 16, 15, 2)
+        assert geo.shared <= 232448
+
+
 def _unfragment(frags):
     """(..., M/16, K/16, 32, 8) -> (..., M, K), reading each lane's values
     by mma.m16n8k16's A layout as PTX states it: value i of lane 4 g + t is

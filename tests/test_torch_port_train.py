@@ -35,7 +35,7 @@ from tssep_tpu_torch.data.device_sim import (DeviceMeetingSimulator,
 from tssep_tpu_torch.nn.rnnp import inverted_dropout
 from tssep_tpu_torch.tasks import losses
 from tssep_tpu_torch.tasks.model import Model
-from tssep_tpu_torch.train.optimizer import Adam
+from tssep_tpu_torch.train.optimizer import Adam, AMSGrad, MultiSteps
 from tssep_tpu_torch.train.trainer import Trainer
 
 F32 = torch.float32
@@ -149,8 +149,12 @@ def test_pit_minimum_finds_the_permutation():
 
 
 def test_not_ported_losses_raise():
-    with pytest.raises(NotImplementedError):
-        losses.loss_from_config({'factory': 'VADSigmoidBCE'})
+    """Every loss of the JAX package is ported: each name builds (a dotted
+    path by its class name), and only an unknown one raises."""
+    with pytest.raises(ValueError):
+        losses.loss_from_config({'factory': 'NoSuchLoss'})
+    assert isinstance(losses.loss_from_config({'factory': 'VADSigmoidBCE'}),
+                      losses.VADSigmoidBCE)
     assert isinstance(losses.loss_from_config(
         {'factory': 'tssep_tpu.tasks.losses.LogMAE', 'pit': True}),
         losses.LogMAE)
@@ -298,10 +302,14 @@ def test_adam_step_matches_optax(grad_norm):
 
 
 def test_not_ported_adam_options_raise():
-    with pytest.raises(NotImplementedError):
-        Adam(amsgrad=True)
-    with pytest.raises(NotImplementedError):
-        Adam().make([torch.nn.Parameter(torch.zeros(1))], every_k_steps=2)
+    """amsgrad, weight decay and multi-step accumulation are ported: each
+    builds the update that optax chains for it (their trajectories against
+    optax: ``tests/test_torch_port_recipe.py``)."""
+    params = [torch.nn.Parameter(torch.zeros(1))]
+    assert isinstance(Adam(amsgrad=True).make(params).update, AMSGrad)
+    assert isinstance(Adam(weight_decay=0.1).make(params).update,
+                      torch.optim.AdamW)
+    assert isinstance(Adam().make(params, every_k_steps=2), MultiSteps)
 
 
 # -- trainer -----------------------------------------------------------------

@@ -164,8 +164,15 @@ def test_unidirectional_rnnp_matches_jax():
 
 @pytest.mark.parametrize('typ', ['gru', 'bgru'])
 def test_gru_arms_are_not_ported(typ):
-    with pytest.raises(NotImplementedError, match='LSTM arms'):
-        rnnp.RNNP(9, typ=typ, storage_dtype=F32, device='cpu')
+    """The GRU arms are ported (``tests/test_torch_port_recipe.py`` holds
+    them against JAX): either builds with ``torch.nn.GRU``'s three-gate
+    layout, and a typ of neither cell raises."""
+    block = rnnp.RNNP(9, cdim=5, typ=typ, storage_dtype=F32, device='cpu')
+    assert block.lstm0.weight_ih_l0.shape == (15, 9)
+    assert block.lstm0.weight_hh_l0.shape == (15, 5)
+    assert hasattr(block.lstm0, 'weight_ih_l0_reverse') == (typ == 'bgru')
+    with pytest.raises(ValueError):
+        rnnp.RNNP(9, typ='rnn', storage_dtype=F32, device='cpu')
 
 
 def test_bidi_off_layer_matches_jax_vjp(kb, monkeypatch):

@@ -18,6 +18,11 @@ the conditioned (B, S, T, F) tensor is materialized. ``fullfuse`` (JAX
 (``nn/rnnp.py`` ``blstm_apply``); ``spill`` and ``bidi`` leave the
 conditioned layer as it is, as in JAX.
 
+The speaker embeddings go through an ``aux_net`` (``LinearAux``, or the
+SpeakerBeam-style ``AuxNet`` with its masked mean over the aux frames) or an
+``aux_normalizer``, and the features through an ``input_normalizer`` before
+``pre_net`` (``nn/norm.py``), all in float32.
+
 From ``pre_net`` on, activations are kept in the storage dtype; the head and
 its outputs are float32.
 """
@@ -31,10 +36,13 @@ import torch
 from torch import nn
 
 from tssep_tpu_torch.nn.init import linear_init_
+from tssep_tpu_torch.nn.norm import norm_from_config
 from tssep_tpu_torch.nn.rnnp import RNNP, inverted_dropout
 from tssep_tpu_torch.utils.device import resolve_device
+from tssep_tpu_torch.utils.factory import factory_name
 
-__all__ = ['MaskEstimator', 'Output']
+__all__ = ['MaskEstimator', 'Output', 'LinearAux', 'AuxNet',
+           'aux_net_from_config']
 
 
 @dataclasses.dataclass
@@ -54,14 +62,87 @@ def _permutation_trial_indices(speakers: int, trials: int, device):
     return idx, torch.argsort(idx, stable=True)
 
 
-def _not_ported(what):
-    return NotImplementedError(f'MaskEstimator: {what} is not ported yet')
+class LinearAux(nn.Module):
+    """Linear projection of the aux embeddings (``tssep_tpu/nn/estimator.py:
+    53``); its parameters are ``net.weight`` and ``net.bias``."""
+
+    def __init__(self, idim, odim, bias=True, *, device='cuda'):
+        super().__init__()
+        self.idim, self.odim = idim, odim
+        self.net = nn.Linear(idim, odim, bias=bias,
+                             device=resolve_device(device))
+
+    def init_params(self, generator: torch.Generator):
+        linear_init_(self.net, generator)
+
+    def forward(self, aux, lengths=None):
+        return self.net(aux)
+
+
+class AuxNet(nn.Module):
+    """SpeakerBeam-style aux network (``tssep_tpu/nn/estimator.py:72``): an
+    optional normalizer, three linear layers with ReLU between them, and the
+    mean over the aux frames. aux: (..., spk, aux_frames, idim) ->
+    (..., spk, odim); ``lengths`` (..., spk) leaves the padded aux frames out
+    of the mean."""
+
+    def __init__(self, idim, odim=None, normalizer=None, *, device='cuda'):
+        super().__init__()
+        if odim is None:
+            odim = idim
+        elif odim != idim:
+            raise NotImplementedError(f'AuxNet odim {odim} != idim {idim}')
+        device = resolve_device(device)
+        self.idim, self.odim = idim, odim
+        self.normalizer = norm_from_config(normalizer)
+        for i in range(3):
+            self.add_module(f'linear{i}', nn.Linear(idim, idim,
+                                                    device=device))
+
+    def init_params(self, generator: torch.Generator):
+        for i in range(3):
+            linear_init_(getattr(self, f'linear{i}'), generator)
+
+    def forward(self, aux, lengths=None):
+        h = aux if self.normalizer is None else self.normalizer(aux)
+        for i in range(3):
+            h = getattr(self, f'linear{i}')(h)
+            if i < 2:
+                h = torch.relu(h)
+        if lengths is None:
+            return h.mean(dim=-2)
+        lengths = torch.as_tensor(lengths, device=h.device)
+        mask = (torch.arange(h.shape[-2], device=h.device)
+                < lengths[..., None]).to(h.dtype)
+        return (h * mask[..., None]).sum(dim=-2) / lengths[..., None].to(
+            h.dtype)
+
+
+_AUX_NETS = {'LinearAux': LinearAux, 'AuxNet': AuxNet}
+
+
+def aux_net_from_config(config, *, device='cuda'):
+    """An aux net from the JAX configuration's form (``{'factory': name,
+    **kwargs}``, the class's name or dotted path); None passes through."""
+    if config is None:
+        return None
+    config = dict(config)
+    name = factory_name(config.pop('factory'))
+    if name not in _AUX_NETS:
+        raise ValueError(f'unknown aux net {name!r}')
+    return _AUX_NETS[name](**config, device=device)
+
+
+def _gather_speakers(x, perm):
+    """``x`` (B, S, ...) in the speaker order ``perm`` (B, S)."""
+    index = perm.reshape(perm.shape + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, index.expand(x.shape))
 
 
 class MaskEstimator(nn.Module):
     """See the module docstring. Arguments as ``tssep_tpu``'s
-    ``MaskEstimator``; the options the flagship does not use raise
-    ``NotImplementedError``."""
+    ``MaskEstimator``; ``aux_net``, ``input_normalizer`` and
+    ``aux_normalizer`` take a module or its JAX configuration's form."""
 
     def __init__(self, *, idim=80, odim=None, layers=3, units=300, projs=320,
                  dropout=0, nmask=1, pre_net='RNNP', aux_net=None,
@@ -73,10 +154,13 @@ class MaskEstimator(nn.Module):
                  spill=False, bidi=True, device='cuda'):
         super().__init__()
         device = resolve_device(device)
-        if aux_net is not None:
-            raise _not_ported('aux_net')
-        if input_normalizer is not None or aux_normalizer is not None:
-            raise _not_ported('an input or aux normalizer')
+        if isinstance(aux_net, dict):
+            aux_net = aux_net_from_config(aux_net, device=device)
+        if aux_net is not None and aux_normalizer is not None:
+            raise ValueError('aux_net and aux_normalizer exclude each other')
+        self.aux_net = aux_net
+        self.input_normalizer = norm_from_config(input_normalizer)
+        self.aux_normalizer = norm_from_config(aux_normalizer)
         if num_averaged_permutations < 1 or (
                 not ts_vad and num_averaged_permutations != 1):
             raise ValueError(f'num_averaged_permutations='
@@ -151,6 +235,8 @@ class MaskEstimator(nn.Module):
             getattr(self.post_net, f'birnn{l}').init_params(generator)
         linear_init_(getattr(self.post_net, f'linear{self.layers - 1}'),
                      generator)
+        if self.aux_net is not None:
+            self.aux_net.init_params(generator)
 
     def num_params(self):
         return sum(p.numel() for p in self.parameters())
@@ -180,16 +266,19 @@ class MaskEstimator(nn.Module):
         return logit[..., None].expand(logit.shape + (self.odim,))
 
     def forward(self, xs, aux, generator: torch.Generator | None = None,
-                training=False) -> Output:
-        """xs: (T, F) or (B, T, F); aux: (S, A) or (B, S, A). Returns masks
-        (B?, S, nmask, T, odim). With a ``generator`` and
-        ``random_speaker_order``, the speakers run in a random order drawn
-        from it, and the outputs come back in the input's order; when
-        ``training``, the generator also draws the dropout between the
-        post-net layers (``dropout > 0``)."""
+                training=False, aux_lengths=None) -> Output:
+        """xs: (T, F) or (B, T, F); aux: (S, A) or (B, S, A), with an
+        aux-frame axis before A where ``aux_net`` is set (``aux_lengths``
+        (B?, S) its valid frames). Returns masks (B?, S, nmask, T, odim).
+        With a ``generator`` and ``random_speaker_order``, the speakers run
+        in a random order drawn from it, and the outputs come back in the
+        input's order; when ``training``, the generator also draws the
+        dropout between the post-net layers (``dropout > 0``)."""
         batched = xs.dim() == 3
         if not batched:
             xs, aux = xs[None], aux[None]
+            if aux_lengths is not None:
+                aux_lengths = torch.as_tensor(aux_lengths)[None]
         B, T, _ = xs.shape
         S = aux.shape[1]
 
@@ -198,9 +287,19 @@ class MaskEstimator(nn.Module):
             perm = torch.rand(B, S, generator=generator,
                               device=generator.device).argsort(-1).to(
                                   aux.device)
-            aux = torch.gather(aux, 1, perm[..., None].expand(aux.shape))
+            aux = _gather_speakers(aux, perm)
+            if aux_lengths is not None:
+                aux_lengths = _gather_speakers(
+                    torch.as_tensor(aux_lengths, device=aux.device), perm)
+
+        if self.aux_net is not None:
+            aux = self.aux_net(aux, aux_lengths)
+        elif self.aux_normalizer is not None:
+            aux = self.aux_normalizer(aux)
         aux = aux.to(xs.dtype)
 
+        if self.input_normalizer is not None:
+            xs = self.input_normalizer(xs)
         if self.pre_net is not None:
             xs = self.pre_net(xs, generator, training)
         xs = xs.to(self.storage_dtype)
@@ -258,9 +357,7 @@ class MaskEstimator(nn.Module):
                 B, S, trials, *logit.shape[2:]).mean(dim=2)
 
         if perm is not None:
-            iperm = perm.argsort(-1)
-            logit = torch.gather(logit, 1, iperm.reshape(
-                iperm.shape + (1,) * (logit.dim() - 2)).expand(logit.shape))
+            logit = _gather_speakers(logit, perm.argsort(-1))
 
         embedding = aux[:, :, None, :]
         if self.explicit_vad:

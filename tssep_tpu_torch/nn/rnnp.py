@@ -2,10 +2,15 @@
 
 ``[(B)LSTM -> Linear (-> Dropout -> Tanh)] x elayers`` with the nonlinearity
 dropped after the last layer, on rank-2/3/4 inputs (speakers folded into the
-batch axis); ``typ`` 'blstm' (bidirectional) or 'lstm' (one direction).
-Parameters keep torch's names and layouts (``weight_ih_l0`` is (4H, I), gate
-order i, f, g, o, ``_reverse`` for the second direction), so the JAX
+batch axis); ``typ`` 'blstm' (bidirectional) or 'lstm' (one direction), or
+the GRU arms 'bgru' and 'gru'. Parameters keep torch's names and layouts
+(``weight_ih_l0`` is (4H, I), gate order i, f, g, o, ``_reverse`` for the
+second direction; a GRU's is (3H, I), gate order r, z, n), so the JAX
 package's named parameters load by name.
+
+The GRU arms have no Pallas kernel in the JAX package, which runs them on
+``lax.scan`` (``_gru_scan``, ``tssep_tpu/nn/rnnp.py:69``); here
+:func:`bgru_apply` is the same step loop in float32, under autograd.
 
 Every layer runs through the kernels of ``tssep_tpu_torch.kernels.blstm``,
 chosen as ``blstm_apply`` chooses (``tssep_tpu/nn/rnnp.py:311-342``). With
@@ -68,7 +73,8 @@ from tssep_tpu_torch.kernels.blstm import (blstm_bidi_bwd, blstm_bidi_fwd,
 from tssep_tpu_torch.nn.init import linear_init_, lstm_init_
 from tssep_tpu_torch.utils.device import resolve_device
 
-__all__ = ['BLSTM', 'RNNP', 'blstm_apply', 'BLSTMLayerFullFused',
+__all__ = ['BLSTM', 'BGRU', 'RNNP', 'blstm_apply', 'bgru_apply',
+           'BLSTMLayerFullFused',
            'BLSTMLayerFused', 'BLSTMLayerFullFusedCond',
            'BLSTMLayerFullFusedSpill', 'BLSTMBidiCore', 'LSTMCore',
            'FULLFUSE_MAX_INPUT', 'PARAM_NAMES', 'inverted_dropout']
@@ -90,6 +96,8 @@ class BLSTM(nn.Module):
     forward direction's four. Float32 master weights; :func:`blstm_apply`
     runs it."""
 
+    gates = 4
+
     def __init__(self, input_size, hidden_size, *, bidirectional=True,
                  device='cuda'):
         super().__init__()
@@ -97,13 +105,55 @@ class BLSTM(nn.Module):
         self.input_size = input_size
         self.hidden_size = hidden_size
         self.bidirectional = bidirectional
-        G = 4 * hidden_size
+        G = self.gates * hidden_size
         for suffix in _SUFFIXES[:2 if bidirectional else 1]:
             for name, shape in (('weight_ih_l0', (G, input_size)),
                                 ('weight_hh_l0', (G, hidden_size)),
                                 ('bias_ih_l0', (G,)), ('bias_hh_l0', (G,))):
                 self.register_parameter(name + suffix, nn.Parameter(
                     torch.zeros(shape, device=device)))
+
+
+class BGRU(BLSTM):
+    """One (bidirectional) GRU layer's parameters, named as ``torch.nn.GRU``
+    names them (three gates r, z, n); :func:`bgru_apply` runs it."""
+
+    gates = 3
+
+
+def _gru_scan(xg, b_hh, w_hh, reverse):
+    """One GRU direction over time, as ``_gru_scan`` steps it: xg (B, T, 3H)
+    the input projections with the input bias; the hidden bias stays out of
+    xg, since the n gate's hidden term is gated by r with its bias, ``n =
+    tanh(x_n + r (W_hn h + b_hn))``. -> (B, T, H)."""
+    B, T, G = xg.shape
+    H = G // 3
+    w_hh_t = w_hh.t()
+    h = xg.new_zeros(B, H)
+    out = [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        hg = h @ w_hh_t + b_hh
+        r = torch.sigmoid(xg[:, t, :H] + hg[:, :H])
+        z = torch.sigmoid(xg[:, t, H:2 * H] + hg[:, H:2 * H])
+        n = torch.tanh(xg[:, t, 2 * H:] + r * hg[:, 2 * H:])
+        h = (1 - z) * n + z * h
+        out[t] = h
+    return torch.stack(out, dim=1)
+
+
+def bgru_apply(layer: BGRU, x, storage_dtype):
+    """x: (B, T, I) -> (B, T, 2H), or (B, T, H) for one direction, in
+    ``storage_dtype``: the projection and the steps in float32, under
+    autograd (JAX ``bgru_apply``, ``tssep_tpu/nn/rnnp.py:117``)."""
+    x = x.float()
+    outs = []
+    for suffix, reverse in zip(_SUFFIXES[:2 if layer.bidirectional else 1],
+                               (False, True)):
+        w_ih, w_hh, b_ih, b_hh = (getattr(layer, name + suffix) for name in
+                                  PARAM_NAMES[:4])
+        xg = nn.functional.linear(x, w_ih, b_ih)
+        outs.append(_gru_scan(xg, b_hh, w_hh, reverse))
+    return torch.cat(outs, dim=-1).to(storage_dtype)
 
 
 def _layer_params(layer):
@@ -383,30 +433,34 @@ def blstm_apply(layer: BLSTM, x, storage_dtype, fullfuse=True, spill=False,
 class RNNP(nn.Module):
     """RNN-with-projection block: [(B)LSTM -> Linear (-> Tanh)] x elayers.
 
-    The LSTM arms of the JAX ``RNNP`` are ported: ``typ`` 'blstm' and
-    'lstm'; the GRU arms ('gru', 'bgru') are not. Dropout between the layers
-    runs in training, with its draws from a generator. ``fullfuse``,
-    ``spill`` and ``bidi`` choose the kernels (:func:`blstm_apply`).
+    ``typ`` 'blstm', 'lstm', 'bgru' or 'gru', as the JAX ``RNNP`` takes
+    it: a leading 'b' is bidirectional, 'lstm' in the name the LSTM cell,
+    else the GRU. Dropout between the layers runs in training, with its
+    draws from a generator. ``fullfuse``, ``spill`` and ``bidi`` choose the
+    LSTM kernels (:func:`blstm_apply`); the GRU arms run
+    :func:`bgru_apply`.
     """
 
     def __init__(self, idim, elayers=1, cdim=300, hdim=320, dropout=0.0,
                  typ='blstm', *, storage_dtype=torch.bfloat16, fullfuse=True,
                  spill=False, bidi=True, device='cuda'):
         super().__init__()
-        if typ not in ('blstm', 'lstm'):
-            raise NotImplementedError(f"RNNP typ={typ!r}: only the LSTM arms "
-                                      f"('blstm', 'lstm') are ported")
+        if typ not in ('blstm', 'lstm', 'bgru', 'gru'):
+            raise ValueError(f"RNNP typ={typ!r}: one of 'blstm', 'lstm', "
+                             f"'bgru', 'gru'")
         device = resolve_device(device)
         self.idim, self.elayers, self.cdim, self.hdim = idim, elayers, cdim, hdim
         self.dropout = dropout
         self.typ = typ
-        self.bidirectional = typ == 'blstm'
+        self.bidirectional = typ.startswith('b')
+        self.cell = 'lstm' if 'lstm' in typ else 'gru'
+        layer_cls = BLSTM if self.cell == 'lstm' else BGRU
         self.storage_dtype = storage_dtype
         self.fullfuse, self.spill, self.bidi = fullfuse, spill, bidi
         scale = 2 if self.bidirectional else 1
         for i in range(elayers):
             inputdim = idim if i == 0 else hdim
-            self.add_module(f'lstm{i}', BLSTM(
+            self.add_module(f'lstm{i}', layer_cls(
                 inputdim, cdim, bidirectional=self.bidirectional,
                 device=device))
             self.add_module(f'proj{i}', nn.Linear(scale * cdim, hdim,
@@ -414,6 +468,7 @@ class RNNP(nn.Module):
 
     def init_params(self, generator: torch.Generator):
         for i in range(self.elayers):
+            # torch.nn.GRU draws its tensors as torch.nn.LSTM does
             lstm_init_(getattr(self, f'lstm{i}'), self.cdim, generator)
             linear_init_(getattr(self, f'proj{i}'), generator)
 
@@ -427,8 +482,12 @@ class RNNP(nn.Module):
         lead = x.shape[:-2]
         h = x.reshape((-1,) + x.shape[-2:])
         for i in range(self.elayers):
-            h = blstm_apply(getattr(self, f'lstm{i}'), h, self.storage_dtype,
-                            self.fullfuse, self.spill, self.bidi)
+            layer = getattr(self, f'lstm{i}')
+            if self.cell == 'gru':
+                h = bgru_apply(layer, h, self.storage_dtype)
+            else:
+                h = blstm_apply(layer, h, self.storage_dtype, self.fullfuse,
+                                self.spill, self.bidi)
             h = self._project(i, h)
             if i < self.elayers - 1:
                 if training:
@@ -448,7 +507,7 @@ class RNNP(nn.Module):
         xs: (B, T, idim); aux: (B, S, idim) -> (B, S, T, hdim) in the
         storage dtype. Needs ``elayers == 1`` and a bidirectional layer;
         ``spill`` and ``bidi`` do not apply, as in JAX."""
-        if self.elayers != 1 or not self.bidirectional:
+        if self.elayers != 1 or self.typ != 'blstm':
             raise ValueError(f'forward_conditioned needs elayers == 1 and '
                              f"typ='blstm', got {self.elayers}, {self.typ!r}")
         params = _layer_params(self.lstm0)

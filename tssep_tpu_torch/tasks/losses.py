@@ -1,15 +1,18 @@
-"""Training losses: port of the part of ``tssep_tpu/tasks/losses.py`` that the
-flagship's training step uses.
+"""Training losses: port of ``tssep_tpu/tasks/losses.py``.
 
 ``Loss`` keeps the target-naming protocol of the JAX package (``target`` is
 the example key; capitalised names are STFT or frame domain, lower-case names
-time domain). ``LogMAE``, the TS-SEP training loss, is ported with its
-permutation-invariant form (``pit=True``) and its masked form for ragged
-batches (``_sample_mask``). Estimates are (B?, speakers, samples); a loss
-returns one value per example for batched input, a scalar otherwise.
-
-The other losses of the JAX package are not ported yet: naming one in a
-configuration raises ``NotImplementedError``.
+time domain). The time-domain losses (``MSE``, ``MAE``, ``LogMAE``, the
+TS-SEP training loss) take estimates of (B?, speakers, samples) and have a
+permutation-invariant form (``pit=True``) and a masked form for ragged
+batches (``_sample_mask``); ``FreqMSE`` compares STFTs; ``VADSigmoidBCE``,
+the TS-VAD training loss, takes the head's logits (B?, speakers, 1, frames,
+freq) against frame activity ``Vad`` (B?, speakers, frames), with its
+``pit`` form and its ``_frame_mask`` form; ``SignalAndVADSigmoidBCE`` adds a
+signal loss to it for ``explicit_vad`` heads. A loss returns one value per
+example for batched input, a scalar otherwise (MSE and FreqMSE as the JAX
+package computes them). ``reads`` names the fields of the model's forward
+output that a loss reads, so that a training forward computes only those.
 """
 
 from __future__ import annotations
@@ -18,8 +21,11 @@ import itertools
 
 import torch
 
-__all__ = ['Loss', 'TimeDomain', 'LogMAE', 'masked_time_stats',
-           'pit_minimum', 'loss_from_config']
+from tssep_tpu_torch.utils.factory import factory_name
+
+__all__ = ['Loss', 'TimeDomain', 'STFTDomain', 'MSE', 'MAE', 'LogMAE',
+           'FreqMSE', 'VADSigmoidBCE', 'SignalAndVADSigmoidBCE',
+           'masked_time_stats', 'pit_minimum', 'loss_from_config']
 
 
 def pit_minimum(pairwise, speakers: int):
@@ -51,9 +57,14 @@ class Loss:
     def name(self):
         return type(self).__name__
 
-    def targets(self, lower=False):
+    #: The fields of the forward's output the loss reads.
+    reads = frozenset()
+
+    def targets(self, lower=False, upper=False):
         if lower:
             return (self.target.lower(),)
+        if upper:
+            return (self.target[0].upper() + self.target[1:],)
         return (self.target,)
 
     def device_targets(self):
@@ -82,27 +93,67 @@ class Loss:
                                     target.unsqueeze(-3)).mean(dim=-1)
         return self.reduce_pit(pit_minimum(pairwise, estimate.shape[-2]))
 
-    def from_ex_out(self, ex, out):
+    def from_ex_out(self, ex, out, model=None):
         raise NotImplementedError
 
 
+def _tensor(value, device, dtype=torch.float32):
+    return torch.as_tensor(value, dtype=dtype, device=device)
+
+
 class TimeDomain(Loss):
-    def from_ex_out(self, ex, out):
+    reads = frozenset({'time_estimate'})
+
+    def from_ex_out(self, ex, out, model=None):
         """The loss of ``out.time_estimate`` against ``ex[target]``, in
         float32 whatever the estimate's dtype."""
         estimate = out.time_estimate.float()
-        target = torch.as_tensor(ex[self.target], dtype=torch.float32,
-                                 device=estimate.device)
+        target = _tensor(ex[self.target], estimate.device)
         mask = ex.get('_sample_mask')
         if mask is not None and not self.pit:
-            mask = torch.as_tensor(mask, dtype=torch.float32,
-                                   device=estimate.device)
+            mask = _tensor(mask, estimate.device)
             return self.reduce_time_masked(
                 masked_time_stats(self.elementwise(estimate, target), mask))
         return self(estimate, target)
 
     def reduce_time_masked(self, per_spk):
         return per_spk.sum(dim=-1)
+
+
+class STFTDomain(Loss):
+    reads = frozenset({'stft_estimate'})
+
+    def from_ex_out(self, ex, out, model=None):
+        """The loss of ``out.stft_estimate`` against ``ex[target]``, which
+        is the STFT of the lower-case target where ``ex`` lacks it (``ex``
+        gains it, as in the JAX package)."""
+        if not self.target[0].isupper():
+            raise ValueError(f'{self.name} needs an STFT-domain target, got '
+                             f'{self.target!r}')
+        estimate = out.stft_estimate
+        if self.target not in ex:
+            ex[self.target] = model.fe.stft(_tensor(
+                ex[self.target.lower()], estimate.device))
+        target = torch.as_tensor(ex[self.target], device=estimate.device)
+        return self(estimate, target)
+
+
+class MSE(TimeDomain):
+    """Mean over time, summed over speakers."""
+
+    def loss_fn(self, estimate, target):
+        return ((estimate - target) ** 2).mean(dim=-1).sum(dim=-1)
+
+    def elementwise(self, e, t):
+        return (e - t) ** 2
+
+
+class MAE(TimeDomain):
+    def loss_fn(self, estimate, target):
+        return (estimate - target).abs().mean(dim=-1).sum(dim=-1)
+
+    def elementwise(self, e, t):
+        return (e - t).abs()
 
 
 class LogMAE(TimeDomain):
@@ -121,21 +172,146 @@ class LogMAE(TimeDomain):
         return torch.log10(per_spk.sum(dim=-1))
 
 
-_PORTED = {'LogMAE': LogMAE}
-_NOT_PORTED = ('MSE', 'MAE', 'FreqMSE', 'VADSigmoidBCE',
-               'SignalAndVADSigmoidBCE')
+def _squared_magnitude(d):
+    return (d * d.conj()).real if d.is_complex() else d ** 2
+
+
+class FreqMSE(STFTDomain):
+    def __init__(self, target='Speaker_reverberation_early', pit=False):
+        super().__init__(target=target, pit=pit)
+
+    def loss_fn(self, estimate, target):
+        sq = _squared_magnitude(estimate - target)
+        # mean over time (and frequency), summed over speakers
+        if sq.dim() >= 3:
+            sq = sq.mean(dim=-1)
+        return sq.mean(dim=-1).sum(dim=-1)
+
+    def elementwise(self, e, t):
+        return _squared_magnitude(e - t)
+
+
+def _bce_with_logits(x, z):
+    """Numerically stable BCE with logits, elementwise."""
+    return x.clamp(min=0) - x * z + torch.log1p(torch.exp(-x.abs()))
+
+
+class VADSigmoidBCE(Loss):
+    """Frame-level voice-activity BCE: the TS-VAD training loss.
+
+    Estimate: logits (B?, spk, time, freq), averaged over freq; target:
+    frame activity (B?, spk, time) (``Vad``), or one derived from a target
+    signal by a magnitude threshold."""
+
+    reads = frozenset({'logit'})
+
+    def __init__(self, target='Vad', pit=False, magnitude_threshold=0.05):
+        super().__init__(target=target, pit=pit)
+        if not 0 < magnitude_threshold < 1:
+            raise ValueError(f'magnitude_threshold {magnitude_threshold}')
+        self.magnitude_threshold = magnitude_threshold
+
+    def loss_fn(self, estimate, target):
+        return _bce_with_logits(estimate, target).mean(dim=(-1, -2))
+
+    def elementwise(self, e, t):
+        return _bce_with_logits(e, t)
+
+    def device_targets(self):
+        # frame-domain 'Vad' only; the sample-domain activity stays host-side
+        if self.target in ('vad', 'Vad'):
+            return {'Vad'}
+        return super().device_targets()
+
+    def prepare_target(self, target):
+        if self.target in ('vad', 'Vad'):
+            return target
+        t = target.abs().sum(dim=-1)
+        t = t / t.amax(dim=-1, keepdim=True)
+        return (t > self.magnitude_threshold).float()
+
+    def __call__(self, estimate, target):
+        if self.target not in ('vad', 'Vad'):
+            if estimate.shape != target.shape or estimate.dim() <= 2:
+                raise ValueError(f'estimate {tuple(estimate.shape)}, target '
+                                 f'{tuple(target.shape)}')
+            target = self.prepare_target(target)
+        estimate = estimate.mean(dim=-1)
+        if estimate.shape != target.shape:
+            raise ValueError(f'estimate {tuple(estimate.shape)} and target '
+                             f'{tuple(target.shape)} differ')
+        if self.pit:
+            s = estimate.shape[-2]
+            pairwise = _bce_with_logits(estimate.unsqueeze(-2),
+                                        target.unsqueeze(-3)).mean(dim=-1)
+            return pit_minimum(pairwise, s) / s
+        # mean over (time, speaker): one value per example
+        return _bce_with_logits(estimate, target).mean(dim=(-1, -2))
+
+    def from_ex_out(self, ex, out, model=None):
+        """The loss of ``out.logit`` without its nmask axis against
+        ``ex[target]`` (frame activity, made on the host by
+        ``Model.host_prepare``); with ``_frame_mask``, the mean over the
+        valid frames of each speaker."""
+        if not self.target[0].isupper():
+            raise ValueError(f'{self.name} needs a frame-domain target, got '
+                             f'{self.target!r}')
+        estimate = out.logit.squeeze(-3).float()
+        target = _tensor(ex[self.target], estimate.device)
+        frame_mask = ex.get('_frame_mask')
+        if frame_mask is not None and not self.pit:
+            frame_mask = _tensor(frame_mask, estimate.device)
+            bce = _bce_with_logits(estimate.mean(dim=-1), target) * frame_mask
+            counts = frame_mask.sum(dim=-1).clamp(min=1.0)
+            return (bce.sum(dim=-1) / counts).mean(dim=-1)
+        return self(estimate, target)
+
+
+class SignalAndVADSigmoidBCE(VADSigmoidBCE):
+    """The VAD loss of an ``explicit_vad`` head's ``vad_logit`` plus a
+    signal loss, each weighted."""
+
+    def __init__(self, signal_loss, target='Vad', pit=False,
+                 magnitude_threshold=0.05, vad_weight=1.0, signal_weight=1.0):
+        super().__init__(target=target, pit=pit,
+                         magnitude_threshold=magnitude_threshold)
+        if isinstance(signal_loss, dict):
+            signal_loss = loss_from_config(signal_loss)
+        self.signal_loss = signal_loss
+        self.vad_weight = float(vad_weight)
+        self.signal_weight = float(signal_weight)
+        self.reads = frozenset({'vad_logit'}) | signal_loss.reads
+
+    def targets(self, lower=False, upper=False):
+        return (super().targets(lower=lower, upper=upper)
+                + self.signal_loss.targets(lower=lower, upper=upper))
+
+    def device_targets(self):
+        return ({'Vad'} if self.target in ('vad', 'Vad')
+                else Loss.device_targets(self)) \
+            | self.signal_loss.device_targets()
+
+    def from_ex_out(self, ex, out, model=None):
+        signal_loss = self.signal_loss.from_ex_out(ex, out, model)
+        estimate = out.vad_logit[..., None].squeeze(-3).float()
+        target = _tensor(ex[self.target], estimate.device)
+        return (self.vad_weight * self(estimate, target)
+                + self.signal_weight * signal_loss)
+
+
+_LOSSES = {cls.__name__: cls for cls in (
+    MSE, MAE, LogMAE, FreqMSE, VADSigmoidBCE, SignalAndVADSigmoidBCE)}
 
 
 def loss_from_config(config=None) -> Loss:
     """A loss from the JAX configuration's form, ``{'factory': name,
     **kwargs}`` with the class's name or dotted path; ``LogMAE()`` for
-    None, as the JAX ``Model`` defaults (``tssep_tpu/tasks/model.py:88``)."""
+    None, as the JAX ``Model`` defaults (``tssep_tpu/tasks/model.py:88``).
+    ``SignalAndVADSigmoidBCE``'s ``signal_loss`` may be such a form too."""
     if config is None:
         return LogMAE()
     config = dict(config)
-    name = str(config.pop('factory', 'LogMAE')).rsplit('.', 1)[-1]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f'loss {name} is not ported yet')
-    if name not in _PORTED:
+    name = factory_name(config.pop('factory', 'LogMAE'))
+    if name not in _LOSSES:
         raise ValueError(f'unknown loss {name!r}')
-    return _PORTED[name](**config)
+    return _LOSSES[name](**config)

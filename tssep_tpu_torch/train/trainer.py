@@ -7,7 +7,9 @@
 Adam update, and returns the loss as a tensor without waiting for the card.
 ``train`` runs a number of steps, reads the losses back once at the end and
 raises on a non-finite one, as the JAX trainer does when it drains its
-pending losses.
+pending losses. With ``virtual_minibatch_size`` k, each step is one of k
+micro-batches whose gradients ``MultiSteps`` averages; the parameters change
+on every k-th step.
 
 Checkpoints, validation, summaries, snapshots and the mesh are not ported
 yet.
@@ -26,14 +28,17 @@ __all__ = ['Trainer']
 
 
 class Trainer:
-    """``Trainer(model, optimizer, seed)``; ``optimizer`` is an
-    :class:`Adam` configuration (default: clipping 10, lr 1e-3). The
-    random speaker order and dropout draw from a generator on the model's
-    device seeded with ``seed``."""
+    """``Trainer(model, optimizer, seed, virtual_minibatch_size)``;
+    ``optimizer`` is an :class:`Adam` or ``SGD`` configuration (default:
+    Adam, clipping 10, lr 1e-3). The random speaker order and dropout draw
+    from a generator on the model's device seeded with ``seed``."""
 
-    def __init__(self, model, optimizer: Adam | None = None, seed: int = 0):
+    def __init__(self, model, optimizer: Adam | None = None, seed: int = 0,
+                 virtual_minibatch_size: int = 1):
         self.model = model
-        self.optimizer = (optimizer or Adam()).make(model.parameters())
+        self.virtual_minibatch_size = int(virtual_minibatch_size)
+        self.optimizer = (optimizer or Adam()).make(
+            model.parameters(), self.virtual_minibatch_size)
         self.seed = seed
         self.generator = torch.Generator(device=model.device).manual_seed(seed)
         self.iteration = 0
