@@ -18,7 +18,9 @@ Phases, each of which must pass:
    of batch 16 and of batch 256; the fully fused pair also at the toy
    recipe's ``pre_net`` (16 rows, F 553) and ``birnn1`` at 2 permutation
    trials (256 rows, F 320; its ``birnn0``, 256 rows at F 513, is the
-   batch-256 ``pre_net`` row). Every pair runs, in bfloat16, the
+   batch-256 ``pre_net`` row), and at the recipe's own widths (H 40: 1 row
+   at F 553, 16 rows at F 513 and 42, 2 and 16 rows at F 336; clusters of
+   8 CTAs with 5 active). Every pair runs, in bfloat16, the
    clustered Hopper kernels (``csrc/blstm_cluster_*.cuh``; the bidi pair in
    their gate-input form, the one-direction pair in that form on a grid of
    one direction, the conditioned pair in their conditioned form, the
@@ -52,7 +54,8 @@ Phases, each of which must pass:
    ``cond_fuse`` and with the plain versions; the peak memory of one request
    with and without ``cond_fuse`` (so too 9 and 10);
 6. training: the same model trains 3 steps at batch 16 on batches from the
-   port's on-device simulator (``Trainer.train``, LogMAE, clipped Adam),
+   port's on-device simulator (``Trainer.train_steps``, LogMAE, clipped
+   Adam),
    through all four kernels of its path, with finite losses; then one
    step's loss and every parameter's gradient agree with those through the
    plain versions, in bfloat16 and in float32 storage;
@@ -80,7 +83,22 @@ Phases, each of which must pass:
     targets, each against the plain versions;
 15. the recipe's TS-SEP stage (the same model, 'tf' and LogMAE) served;
 16. the flagship with ``SoudenMVDR`` (nmask 2, a head twice as wide) served
-    on requests of 7 channels.
+    on requests of 7 channels;
+17. recipe cli: the toy recipe's two stages through the port's CLI
+    (``tssep_tpu_torch.train.run.main``, in this process so that the launch
+    counters see its kernels) in a temporary directory, at the YAML's widths
+    (units 40, projs 42) in float32, the CLI's default: TS-VAD for 400
+    iterations with checkpoints and validation (its ``test_run``
+    pre-flight included), then TS-SEP warm-started from TS-VAD's
+    ``ckpt_best_loss.npz`` and cold-started, 20 iterations each; the
+    storage dirs' files, the launch counts (the fully fused pair only), ms
+    per iteration, the time to checkpoint and to validate, a profiled step
+    with the device's idle share, and the zero-shot validation loss and
+    SI-SDR gain over the mixture of the warm and the cold TS-SEP, which
+    the warm one must win;
+18. recipe cli flagship: TS-VAD through the CLI at the flagship's widths
+    (units 300, projs 320) in bfloat16 for 12 iterations: the stacked
+    birnn2 (2560 wide) adds the bidi pair.
 
 Before them a ``cond_fuse``, a ``spill`` and a ``bidi=False`` line sum up
 the conditioned, the spill and the one-direction pair in bfloat16 at batch
@@ -103,10 +121,14 @@ import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import json        # noqa: E402
 import math        # noqa: E402
+import os          # noqa: E402
 import subprocess  # noqa: E402
+import tempfile    # noqa: E402
 import time        # noqa: E402
+from pathlib import Path  # noqa: E402
 from unittest import mock  # noqa: E402
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from tssep_tpu_torch.data.device_sim import (  # noqa: E402
@@ -115,6 +137,8 @@ from tssep_tpu_torch.kernels import _build  # noqa: E402
 from tssep_tpu_torch.kernels import blstm as kb  # noqa: E402
 from tssep_tpu_torch.nn import rnnp  # noqa: E402
 from tssep_tpu_torch.tasks.model import Model  # noqa: E402
+from tssep_tpu_torch.config.configurable import from_config  # noqa: E402
+from tssep_tpu_torch.train import run as cli  # noqa: E402
 from tssep_tpu_torch.train.optimizer import Adam  # noqa: E402
 from tssep_tpu_torch.train.trainer import Trainer  # noqa: E402
 
@@ -263,6 +287,22 @@ KERNELS = tuple(SOURCES)
 #: the 'pre_net' row at batch 256).
 RECIPE_CASES = [('recipe pre_net', 16, FRAMES, 553, HIDDEN),
                 ('recipe birnn1', 16 * 2 * SPEAKERS, FRAMES, 320, HIDDEN)]
+#: The toy recipe at its own widths (units 40, projs 42), batch 1 and 2
+#: trials, as the ``recipe cli`` phase trains it: every layer fully fused,
+#: clusters of 8 CTAs with 5 active. pre_net on the 553 features at 1 row,
+#: birnn0 on the 513 conditioned features and birnn1 on 42 at 16 rows (8
+#: speakers x 2 trials), the stacked birnn2 on 8 x 42 = 336 at 2 rows, and
+#: at 16 rows.
+RECIPE_CLI_UNITS, RECIPE_CLI_PROJS = 40, 42
+RECIPE_CLI_CASES = [
+    ('recipe cli pre_net', 1, FRAMES, 553, RECIPE_CLI_UNITS),
+    ('recipe cli birnn0', 2 * SPEAKERS, FRAMES, BINS, RECIPE_CLI_UNITS),
+    ('recipe cli birnn1', 2 * SPEAKERS, FRAMES, RECIPE_CLI_PROJS,
+     RECIPE_CLI_UNITS),
+    ('recipe cli birnn2', 2, FRAMES, SPEAKERS * RECIPE_CLI_PROJS,
+     RECIPE_CLI_UNITS),
+    ('recipe cli birnn2 16 rows', 16, FRAMES, SPEAKERS * RECIPE_CLI_PROJS,
+     RECIPE_CLI_UNITS)]
 #: (label, B, T, F, H) of the fully fused kernel's calls and (label, B, T, H)
 #: of the bidi kernel's. The 'serve' rows are one request of batch 16, the
 #: others the flagship training shapes at batch 256.
@@ -273,7 +313,7 @@ FULLFUSED_CASES = [('ragged', 13, 23, 12, 16),
                    ('pre_net', 256, FRAMES, BINS, HIDDEN),
                    ('birnn0', 256 * SPEAKERS, FRAMES, BINS, HIDDEN),
                    ('birnn1', 256 * SPEAKERS, FRAMES, 320, HIDDEN),
-                   *RECIPE_CASES]
+                   *RECIPE_CASES, *RECIPE_CLI_CASES]
 #: 'fullfuse=False' rows are the folded layers' calls on that path.
 BIDI_CASES = [('ragged', 13, 23, 16),
               ('serve birnn2', 16, FRAMES, HIDDEN),
@@ -288,7 +328,7 @@ FULLFUSED_BWD_CASES = [('ragged', 13, 23, 12, 16),
                        ('pre_net', 256, FRAMES, BINS, HIDDEN),
                        ('birnn0', 256 * SPEAKERS, FRAMES, BINS, HIDDEN),
                        ('birnn1', 256 * SPEAKERS, FRAMES, 320, HIDDEN),
-                       *RECIPE_CASES]
+                       *RECIPE_CASES, *RECIPE_CLI_CASES]
 BIDI_BWD_CASES = [('ragged', 13, 23, 16),
                   ('train birnn2', 16, FRAMES, HIDDEN),
                   ('birnn2', 256, FRAMES, HIDDEN),
@@ -1414,16 +1454,30 @@ _STEP_KERNELS = {'forward kernels': ('blstm_fwd_kernel', 'cluster_fwd_kernel'),
                                       'splitk_add_kernel')}
 
 
-def _profile_step(trainer, batch):
-    """Device time of one training step by kernel group, from
-    ``torch.profiler``; None where the profiler records no device time."""
+def _profiled_step(label, trainer, batch):
+    """Device time of one training step by kernel group and the device's
+    idle share, from ``torch.profiler``, logged; None where the profiler
+    fails or records no device time. A failure of the step itself is
+    raised."""
     from torch.profiler import ProfilerActivity, profile
+    failed_step = None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(batch)
-        torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            try:
+                trainer.train_step(batch)
+                torch.cuda.synchronize()
+            except Exception as exc:
+                failed_step = exc
+                raise
+    except (RuntimeError, AttributeError) as exc:
+        if failed_step is not None:
+            raise
+        log(f'{label}: profiler failed: {exc}')
+        log(f'{label}: step split from torch.profiler (ms): not measured')
+        return None
     wall_ms = 1e3 * (time.perf_counter() - t0)
     split = dict.fromkeys(list(_STEP_KERNELS) + ['other device work'], 0.0)
     for key, ms in _device_events(prof):
@@ -1433,29 +1487,34 @@ def _profile_step(trainer, batch):
         split[group] += ms
     busy = sum(split.values())
     if busy == 0:
-        return None
-    split['device idle'] = wall_ms - busy
-    split['wall (profiled)'] = wall_ms
+        split = None
+    else:
+        split['device idle'] = wall_ms - busy
+        split['wall (profiled)'] = wall_ms
+        split['idle share'] = split['device idle'] / wall_ms
+    log(f'{label}: step split from torch.profiler (ms): '
+        f'{json.dumps(split) if split else "not measured"}')
     return split
 
 
 def _train(model, steps, per_step, label):
-    """``Trainer.train`` for ``steps`` steps of batch ``TRAIN_BATCH`` on the
-    simulator's batches, with the launch counts set to 0 just before; checks
+    """``Trainer.train_steps`` for ``steps`` steps of batch ``TRAIN_BATCH``
+    on the simulator's batches, with the launch counts set to 0 just before; checks
     the losses and that each step launched ``per_step``."""
     sim = DeviceMeetingSimulator(duration=SAMPLES / 16000,
                                  num_speakers=SPEAKERS, aux_size=BINS)
     data = DeviceSimDataset(sim, TRAIN_BATCH, seed=2,
                             targets=model.loss.device_targets() | {'Vad'},
                             device='cuda')
-    trainer = Trainer(model, Adam(gradient_clipping=10, lr=1e-3), seed=0)
+    trainer = Trainer(model, None, optimizer=Adam(gradient_clipping=10,
+                                                  lr=1e-3), seed=0)
 
     _reset_launches()
     t0 = time.perf_counter()
-    losses = trainer.train(data, steps)
+    losses = trainer.train_steps(data, steps)
     train_s = time.perf_counter() - t0
     launches = _launches()
-    log(f'{label}: Trainer.train {steps} steps of batch {TRAIN_BATCH} '
+    log(f'{label}: Trainer.train_steps {steps} steps of batch {TRAIN_BATCH} '
         f'in {train_s:.2f} s (first calls included), losses {losses}, '
         f'launches {launches}')
     check(len(losses) == steps, f'{label}: a loss per step')
@@ -1507,13 +1566,7 @@ def phase_training(rows):
         and r['dtype'] == 'bfloat16')}
     est['rest'] = min(step_ms) - sum(est.values())
     log(f'train: step split from the kernels phase (ms): {json.dumps(est)}')
-    try:
-        split = _profile_step(trainer, batch)
-    except (RuntimeError, AttributeError) as exc:
-        split = None
-        log(f'train: profiler failed: {exc}')
-    log(f'train: step split from torch.profiler (ms): '
-        f'{json.dumps(split) if split else "not measured"}')
+    split = _profiled_step('train', trainer, batch)
 
     agree = _train_checks(model, batch, 'train')
     return {'launches': launches, 'losses': losses, 'step_ms': step_ms,
@@ -1583,13 +1636,7 @@ def phase_training_switch(label, steps, per_step, **switches):
     model = _flagship(**switches)
     trainer, data, losses, launches = _train(model, steps, per_step, label)
     gen_ms, step_ms, batch = _step_times(trainer, data, steps, label)
-    try:
-        split = _profile_step(trainer, batch)
-    except (RuntimeError, AttributeError) as exc:
-        split = None
-        log(f'{label}: profiler failed: {exc}')
-    log(f'{label}: step split from torch.profiler (ms): '
-        f'{json.dumps(split) if split else "not measured"}')
+    split = _profiled_step(label, trainer, batch)
     agree = _train_checks(model, batch, label, **switches)
     base = _flagship()
     base.load_state_dict(model.state_dict())
@@ -1649,13 +1696,7 @@ def phase_training_model(label, cfg, per_step):
     trainer, data, losses, launches = _train(model, TRAIN_STEPS, per_step,
                                              label)
     gen_ms, step_ms, batch = _step_times(trainer, data, TRAIN_STEPS, label)
-    try:
-        split = _profile_step(trainer, batch)
-    except (RuntimeError, AttributeError) as exc:
-        split = None
-        log(f'{label}: profiler failed: {exc}')
-    log(f'{label}: step split from torch.profiler (ms): '
-        f'{json.dumps(split) if split else "not measured"}')
+    split = _profiled_step(label, trainer, batch)
     agree = _train_checks(model, batch, label, cfg=cfg)
     peak = _peak_mib(lambda: _step_grads(model, batch, False))
     log(f'{label}: peak memory of one step\'s forward and backward at batch '
@@ -1663,6 +1704,245 @@ def phase_training_model(label, cfg, per_step):
     return {'launches': launches, 'losses': losses, 'step_ms': step_ms,
             'gen_ms': gen_ms, 'split_profiler': split, 'peak_mib': peak,
             'agreement': agree}
+
+
+#: The toy recipe through the port's CLI (``tssep_tpu_torch/exp``'s YAMLs,
+#: the triggers overridden on the command line): TS-VAD at the YAML's
+#: widths in the CLI's default float32, TS-SEP warm-started from its best
+#: checkpoint and cold-started; then TS-VAD at the flagship's widths in
+#: bfloat16. Iterations (stop), checkpoint and summary triggers per run.
+RECIPE_EXP = Path('tssep_tpu_torch') / 'exp'
+RECIPE_VAD = (400, 200, 100)
+RECIPE_SEP = (20, 20, 10)
+RECIPE_FLAGSHIP = (12, 12, 4)
+#: Kernels on the toy's path (every layer fully fused) and, at the
+#: flagship's widths, the stacked birnn2 (8 x 320 = 2560 wide) on the bidi
+#: pair.
+RECIPE_CLI_KERNELS = ('blstm_fullfused_fwd', 'blstm_fullfused_bwd')
+RECIPE_FLAGSHIP_KERNELS = RECIPE_CLI_KERNELS + ('blstm_bidi_fwd',
+                                                'blstm_bidi_bwd')
+
+
+def _stage_args(stage, storage, triggers, *extra):
+    stop, ckpt, summary = triggers
+    return ['with', str(RECIPE_EXP / 'init_cfg_common.yaml'),
+            str(RECIPE_EXP / f'init_cfg_{stage}.yaml'),
+            f'eg.trainer.storage_dir={storage}',
+            f'eg.trainer.stop_trigger=[{stop},iteration]',
+            f'eg.trainer.checkpoint_trigger=[{ckpt},iteration]',
+            f'eg.trainer.summary_trigger=[{summary},iteration]', *extra]
+
+
+def _timed(name, times):
+    """``Trainer.<name>`` timed (CUDA-synchronized) into ``times``."""
+    original = getattr(Trainer, name)
+
+    def wrapper(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        return out
+    return mock.patch.object(Trainer, name, wrapper)
+
+
+def _metrics(storage):
+    return [json.loads(line) for line in
+            (Path(storage) / 'metrics.jsonl').read_text().splitlines()]
+
+
+def _ms_per_iteration(storage, triggers):
+    """ms per iteration between consecutive train summaries, over the
+    intervals that hold no validation or checkpoint (the snapshot forward
+    of a summary is in them)."""
+    _, ckpt, _ = triggers
+    flushes = [(r['step'], r['time']) for r in _metrics(storage)
+               if 'train/loss' in r]
+    return [1e3 * (t1 - t0) / (s1 - s0)
+            for (s0, t0), (s1, t1) in zip(flushes, flushes[1:])
+            if s0 % ckpt]
+
+
+def _cli_run(label, args, kernels, triggers):
+    """``tssep_tpu_torch.train.run.main(args)`` in this process on the
+    card, with the launch counts set to 0 just before and read just after;
+    checks the storage dir and that only ``kernels`` were launched, each
+    at least once."""
+    storage = Path(next(a for a in args if a.startswith(
+        'eg.trainer.storage_dir=')).partition('=')[2])
+    saves, validations = [], []
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _timed('save', saves), _timed('validate', validations):
+        eg = cli.main(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    stop = triggers[0]
+    check(eg.trainer.iteration == stop, f'{label}: {stop} iterations')
+    for name in ('config.yaml', 'Makefile', 'python_history.txt',
+                 'metrics.jsonl', 'checkpoints/ckpt_latest.npz',
+                 'checkpoints/ckpt_best_loss.npz'):
+        check((storage / name).exists(), f'{label}: {name} written')
+    check('tssep_tpu_torch.train.run' in (storage / 'Makefile').read_text(),
+          f'{label}: the Makefile names the port\'s CLI')
+    check(all(launches[k] > 0 for k in kernels)
+          and not any(v for k, v in launches.items() if k not in kernels),
+          f'{label}: launches only and each of {kernels}, got {launches}')
+    metrics = _metrics(storage)
+    losses = [r['train/loss'] for r in metrics if 'train/loss' in r]
+    val = [r['validation/mean_loss'] for r in metrics
+           if 'validation/mean_loss' in r]
+    check(all(map(math.isfinite, losses + val)), f'{label}: finite losses')
+    failed = [r for r in metrics if 'train/snapshot_errors' in r
+              or 'validation/snapshot_errors' in r]
+    check(not failed, f'{label}: no snapshot forward failed, got {failed}')
+    out = {'launches': launches, 'seconds': seconds,
+           'ms_per_iteration': _ms_per_iteration(storage, triggers),
+           'save_ms': saves, 'validate_ms': validations,
+           'train_losses': losses, 'validation_losses': val}
+    log(f'{label}: {json.dumps(out)}')
+    return eg, out
+
+
+def _si_sdr(reference, estimate):
+    """Scale-invariant SDR in dB over the last axis (float64)."""
+    reference = np.asarray(reference, np.float64)
+    estimate = np.asarray(estimate, np.float64)
+    alpha = (np.sum(reference * estimate, -1, keepdims=True)
+             / np.maximum(np.sum(reference ** 2, -1, keepdims=True), 1e-12))
+    target = alpha * reference
+    return 10 * np.log10(np.maximum(np.sum(target ** 2, -1), 1e-12)
+                         / np.maximum(np.sum((estimate - target) ** 2, -1),
+                                      1e-12))
+
+
+def _zero_shot(args):
+    """The TS-SEP stage of ``args`` built by the CLI's own functions,
+    warm-started by its ``init_ckpt`` and not trained: its validation loss
+    and the SI-SDR gain of its separated waveforms over the mixture,
+    averaged over the validation examples and speakers."""
+    command, files, overrides = cli.parse_argv(args)
+    config = cli.build_config(files, overrides)
+    eg = from_config(config['eg'], **cli.runtime_options(args))
+    trainer, model = eg.trainer, eg.trainer.model
+    trainer.ensure_init()
+    eg.init_ckpt(eg)
+    data = model.prepare_validate_dataset(prefetch=False)
+    trainer.register_validation_hook(data)
+    loss, _ = trainer.validate()
+    gains = []
+    for ex in data:
+        with torch.no_grad():
+            est = model(ex).time_estimate.cpu().numpy()
+        ref = ex['speaker_reverberation_early_ch0'].cpu().numpy()
+        mix = ex['observation'][0].cpu().numpy()
+        gains.append(np.mean(_si_sdr(ref, est) - _si_sdr(ref, mix[None])))
+    return {'validation_loss': loss, 'si_sdr_gain_db': float(np.mean(gains))}
+
+
+def _recipe_step(label, eg):
+    """One recipe step of ``eg``'s trainer under ``torch.profiler``."""
+    batch = next(iter(eg.trainer.model.prepare_train_dataset(
+        prefetch=False, batch_size=1)))
+    return _profiled_step(label, eg.trainer, batch)
+
+
+#: Iterations a resumed run has done before it starts: none, the TS-VAD
+#: run's, and the JAX trainer's default stop trigger.
+RESUME_AT = (0, RECIPE_VAD[0], 416666)
+
+
+def _resume_skip(eg):
+    """ms (host) to the first batch of the stage's training data, prepared
+    as the Experiment prepares it, from where a run resumed after each of
+    ``RESUME_AT`` iterations starts (``Dataset.iter_from``)."""
+    model, vmb = eg.trainer.model, eg.trainer.virtual_minibatch_size
+    out = {}
+    for done in RESUME_AT:
+        data = model.prepare_train_dataset(prefetch=True,
+                                           batch_size=eg.train_batchsize)
+        t0 = time.perf_counter()
+        it = data.tile(None).iter_from(done * vmb)
+        next(it)
+        torch.cuda.synchronize()
+        out[done] = 1e3 * (time.perf_counter() - t0)
+        it.close()
+    log(f'resume: ms to the first batch after (iterations: ms) '
+        f'{json.dumps(out)}')
+    return out
+
+
+def phase_recipe_cli():
+    """The toy recipe's two stages through ``tssep_tpu_torch.train.run.main``
+    on the card in a temporary directory, float32 (the CLI's default):
+    TS-VAD trained ``RECIPE_VAD[0]`` iterations with checkpoints and
+    validation; TS-SEP warm-started from its ``ckpt_best_loss.npz`` and
+    cold-started, each trained a few iterations; the zero-shot validation
+    loss and SI-SDR gain of both, which the warm start must win."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.pop('TSSEP_COMPUTE_DTYPE', None)
+    with tempfile.TemporaryDirectory(prefix='tssep_recipe_') as tmp:
+        tmp = Path(tmp)
+        vad_args = _stage_args('tsvad', tmp / 'tsvad', RECIPE_VAD)
+        eg, vad = _cli_run('recipe cli tsvad', ['train', *vad_args],
+                           RECIPE_CLI_KERNELS, RECIPE_VAD)
+        me = eg.trainer.model.mask_estimator
+        check((me.units, me.projs, me.storage_dtype)
+              == (RECIPE_CLI_UNITS, RECIPE_CLI_PROJS, F32),
+              'recipe cli: the YAML\'s widths in float32')
+        check(vad['train_losses'][-1] < vad['train_losses'][0],
+              f'recipe cli tsvad: the loss falls, {vad["train_losses"]}')
+        vad['profiled_step'] = _recipe_step('recipe cli tsvad', eg)
+        vad['resume_first_batch_ms'] = _resume_skip(eg)
+        best = (tmp / 'tsvad' / 'checkpoints' / 'ckpt_best_loss.npz').resolve()
+        warm = _stage_args('tssep', tmp / 'warm', RECIPE_SEP,
+                           f'eg.init_ckpt.init_ckpt={best}')
+        cold = _stage_args(
+            'tssep', tmp / 'cold', RECIPE_SEP,
+            'eg.init_ckpt={factory: '
+            'tssep_tpu_torch.train.init_ckpt.InitCheckPoint}')
+        zero = {'warm': _zero_shot(warm), 'cold': _zero_shot(cold)}
+        log(f'recipe cli: zero-shot TS-SEP: {json.dumps(zero)}')
+        runs = {}
+        for name, args in (('warm', warm), ('cold', cold)):
+            _, runs[name] = _cli_run(f'recipe cli tssep {name}',
+                                     ['train', *args], RECIPE_CLI_KERNELS,
+                                     RECIPE_SEP)
+        check(zero['warm']['validation_loss'] < zero['cold']['validation_loss']
+              and zero['warm']['si_sdr_gain_db']
+              > zero['cold']['si_sdr_gain_db'],
+              f'recipe cli: the warm start beats the cold start at zero '
+              f'shot, {zero}')
+    return {'tsvad': vad, 'tssep warm': runs['warm'],
+            'tssep cold': runs['cold'], 'zero_shot': zero}
+
+
+def phase_recipe_cli_flagship():
+    """TS-VAD through the CLI at the flagship's widths (units 300, projs
+    320) in bfloat16 (``TSSEP_COMPUTE_DTYPE``): the stacked birnn2, 2560
+    wide, adds the bidi pair."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ['TSSEP_COMPUTE_DTYPE'] = 'bfloat16'
+    try:
+        with tempfile.TemporaryDirectory(prefix='tssep_recipe_') as tmp:
+            args = _stage_args(
+                'tsvad', Path(tmp) / 'tsvad', RECIPE_FLAGSHIP,
+                f'eg.trainer.model.mask_estimator.units={HIDDEN}',
+                'eg.trainer.model.mask_estimator.projs=320')
+            eg, out = _cli_run('recipe cli flagship', ['train', *args],
+                               RECIPE_FLAGSHIP_KERNELS, RECIPE_FLAGSHIP)
+            me = eg.trainer.model.mask_estimator
+            check((me.units, me.projs, me.storage_dtype)
+                  == (HIDDEN, 320, BF16),
+                  'recipe cli flagship: widths and bfloat16')
+            out['profiled_step'] = _recipe_step('recipe cli flagship', eg)
+    finally:
+        os.environ.pop('TSSEP_COMPUTE_DTYPE', None)
+    return out
 
 
 def pair_summary(switch, pair, rows, serving, training):
@@ -1793,8 +2073,13 @@ def main():
                 label, MVDR, PER_REQUEST, MVDR_CHANNELS))):
         switched[label] = run(label)
         log(f'-- {label} done at {time.perf_counter() - t0:.1f} s')
+    recipe = phase_recipe_cli()
+    log(f'-- recipe cli done at {time.perf_counter() - t0:.1f} s')
+    recipe_flagship = phase_recipe_cli_flagship()
+    log(f'-- recipe cli flagship done at {time.perf_counter() - t0:.1f} s')
     log(json.dumps({'serving cond_fuse': serving_cond, 'training': training,
-                    **switched}))
+                    **switched, 'recipe cli': recipe,
+                    'recipe cli flagship': recipe_flagship}))
     pair_summary('cond_fuse', ('blstm_fullfused_cond_fwd',
                                'blstm_fullfused_cond_bwd'), rows,
                  serving_cond, switched['train cond_fuse'])
@@ -1808,7 +2093,10 @@ def main():
         'serve cond_fuse': serving_cond['launches'],
         'serve cond_fuse trials 2': serving_cond['launches_trials2'],
         'train': training['launches'],
-        **{label: r['launches'] for label, r in switched.items()}})))
+        **{label: r['launches'] for label, r in switched.items()},
+        **{f'recipe cli {name}': recipe[name]['launches']
+           for name in ('tsvad', 'tssep warm', 'tssep cold')},
+        'recipe cli flagship': recipe_flagship['launches']})))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

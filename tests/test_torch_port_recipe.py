@@ -391,7 +391,8 @@ def test_trainer_passes_the_virtual_minibatch_size():
             super().__init__()
             self.p = params[0]
 
-    trainer = Trainer(_Model(), optimizer.Adam(), virtual_minibatch_size=3)
+    trainer = Trainer(_Model(), None, optimizer=optimizer.Adam(),
+                      virtual_minibatch_size=3)
     assert isinstance(trainer.optimizer, optimizer.MultiSteps)
     assert trainer.optimizer.every_k_steps == 3
 

@@ -328,8 +328,9 @@ def _tiny_setup():
 def test_trainer_takes_steps_with_finite_losses():
     model, data = _tiny_setup()
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    trainer = Trainer(model, Adam(gradient_clipping=10, lr=1e-3), seed=0)
-    losses_ = trainer.train(data, 2)
+    trainer = Trainer(model, None,
+                      optimizer=Adam(gradient_clipping=10, lr=1e-3), seed=0)
+    losses_ = trainer.train_steps(data, 2)
     assert len(losses_) == 2 and all(np.isfinite(losses_))
     assert trainer.iteration == 2
     assert any(not torch.equal(before[k], v)
@@ -342,4 +343,4 @@ def test_trainer_raises_on_a_non_finite_loss():
     bad = dict(good, observation=torch.full_like(good['observation'],
                                                  float('nan')))
     with pytest.raises(RuntimeError, match='Non-finite loss'):
-        Trainer(model, seed=0).train([good, bad], 2)
+        Trainer(model, None, seed=0).train_steps([good, bad], 2)

@@ -19,13 +19,13 @@ The streaming forms (``streaming_feature``) are not ported here.
 
 from __future__ import annotations
 
-import inspect
 import itertools
 import math
 
 import numpy as np
 import torch
 
+from tssep_tpu_torch.config.configurable import from_config, get_config
 from tssep_tpu_torch.signal.mel import amplitude_to_db, create_dct, mel_filterbank
 from tssep_tpu_torch.signal.stft import STFT
 from tssep_tpu_torch.utils.factory import factory_name
@@ -39,6 +39,11 @@ __all__ = ['STFTFeatures', 'AbsSTFT', 'Log1pAbsSTFT', 'MVNLog1pAbsSTFT',
 
 class STFTFeatures:
     """Base feature extractor: an STFT plus a ``stft_to_feature`` transform."""
+
+    @classmethod
+    def finalize_dogmatic_config(cls, config):
+        if config.get('window_length') is None:
+            config['window_length'] = config.get('size', 1024)
 
     def __init__(self, size=1024, shift=256, window_length=None, pad=True,
                  fading=True, output_size=None, window='blackman'):
@@ -285,9 +290,9 @@ TorchMFCC = MFCC
 
 
 class ConcatenatedSTFTFeatures(STFTFeatures):
-    """fe1 ⊕ fe2 on a shared STFT. ``finalize_config`` gives fe1 and fe2 the
-    STFT settings they do not set themselves, as the JAX class's
-    ``finalize_dogmatic_config`` does."""
+    """fe1 ⊕ fe2 on a shared STFT. ``finalize_dogmatic_config`` gives fe1
+    and fe2 the STFT settings of the concatenation, as the JAX class's
+    does (``tssep_tpu/features/extractor.py:427-439``)."""
 
     def __init__(self, fe1, fe2, output_size=None, size=1024, shift=256,
                  window='blackman', window_length=None, pad=True,
@@ -298,25 +303,19 @@ class ConcatenatedSTFTFeatures(STFTFeatures):
                          window=window)
 
     @classmethod
-    def finalize_config(cls, config: dict) -> dict:
-        """``config`` with fe1's and fe2's missing size, shift, pad, fading,
-        window and window_length taken from the concatenation's own (its
-        signature's defaults where it sets none; window_length defaults to
-        size)."""
-        config = dict(config)
-        parent = {**_defaults(cls), **config}
-        window_length = parent['window_length']
-        if window_length is None:
-            window_length = parent['size']
-        for fe in ('fe1', 'fe2'):
-            if fe not in config or not isinstance(config[fe], dict):
+    def finalize_dogmatic_config(cls, config):
+        for fe in ['fe1', 'fe2']:
+            if fe not in config:
                 continue
-            sub = dict(config[fe])
-            for key in ('size', 'shift', 'pad', 'fading', 'window'):
-                sub.setdefault(key, parent[key])
-            sub.setdefault('window_length', window_length)
-            config[fe] = sub
-        return config
+            for key in ['size', 'shift', 'pad', 'fading', 'window']:
+                if key in config:
+                    config[fe][key] = config[key]
+            if config.get('window_length') is not None:
+                config[fe]['window_length'] = config['window_length']
+        super().finalize_dogmatic_config(config)
+        for fe in ['fe1', 'fe2']:
+            if fe in config:
+                config[fe]['window_length'] = config['window_length']
 
     def _get_output_size(self, output_size):
         if output_size is None:
@@ -332,12 +331,6 @@ class ConcatenatedSTFTFeatures(STFTFeatures):
 ConcaternatedSTFTFeatures = ConcatenatedSTFTFeatures
 
 
-def _defaults(cls):
-    return {name: p.default for name, p in
-            inspect.signature(cls.__init__).parameters.items()
-            if p.default is not inspect.Parameter.empty}
-
-
 _CLASSES = {cls.__name__: cls for cls in (
     STFTFeatures, AbsSTFT, Log1pAbsSTFT, MVNLog1pAbsSTFT,
     Log1pMaxNormAbsSTFT, NoFeatureSTFT, AbsIPDSTFT, Log1pAbsIPDSTFT,
@@ -351,8 +344,9 @@ _NOT_PORTED = {'KaldiMFCC': 'features/kaldi.py, ROADMAP Queue 1 item 5'}
 
 def fe_from_config(config: dict) -> STFTFeatures:
     """A feature extractor from the JAX configuration's form, ``{'factory':
-    name, **kwargs}``, the factory mapped by its class name; nested
-    ``fe1``/``fe2`` configurations are built the same way."""
+    name, **kwargs}``, the factory mapped by its class name, completed by
+    ``get_config`` (nested ``fe1``/``fe2`` configurations too) and built by
+    ``from_config``."""
     config = dict(config)
     name = factory_name(config.pop('factory'))
     if name in _NOT_PORTED:
@@ -360,10 +354,4 @@ def fe_from_config(config: dict) -> STFTFeatures:
                                   f'yet ({_NOT_PORTED[name]})')
     if name not in _CLASSES:
         raise ValueError(f'unknown feature extractor {name!r}')
-    cls = _CLASSES[name]
-    if cls is ConcatenatedSTFTFeatures:
-        config = cls.finalize_config(config)
-        for fe in ('fe1', 'fe2'):
-            if isinstance(config.get(fe), dict):
-                config[fe] = fe_from_config(config[fe])
-    return cls(**config)
+    return from_config(get_config(_CLASSES[name], config))

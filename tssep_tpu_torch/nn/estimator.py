@@ -86,6 +86,11 @@ class AuxNet(nn.Module):
     (..., spk, odim); ``lengths`` (..., spk) leaves the padded aux frames out
     of the mean."""
 
+    @classmethod
+    def finalize_dogmatic_config(cls, config):
+        if config.get('odim') is None:
+            config['odim'] = config['idim']
+
     def __init__(self, idim, odim=None, normalizer=None, *, device='cuda'):
         super().__init__()
         if odim is None:
@@ -143,6 +148,20 @@ class MaskEstimator(nn.Module):
     """See the module docstring. Arguments as ``tssep_tpu``'s
     ``MaskEstimator``; ``aux_net``, ``input_normalizer`` and
     ``aux_normalizer`` take a module or its JAX configuration's form."""
+
+    @classmethod
+    def finalize_dogmatic_config(cls, config):
+        """The JAX class's rules (``tssep_tpu/nn/estimator.py:146-153``):
+        without an aux net an i-vector size of 100; with one its ``idim``
+        the estimator's ``odim`` and, for 'cat', the aux net's ``odim`` as
+        the embedding size. Values the configuration sets win."""
+        if config.get('aux_net') is None:
+            config['aux_net_output_size'] = 100
+        else:
+            config['aux_net']['idim'] = config.get('odim') or config['idim']
+            if (config.get('combination', 'cat') == 'cat'
+                    and 'odim' in config['aux_net']):
+                config['aux_net_output_size'] = config['aux_net']['odim']
 
     def __init__(self, *, idim=80, odim=None, layers=3, units=300, projs=320,
                  dropout=0, nmask=1, pre_net='RNNP', aux_net=None,
@@ -374,3 +393,7 @@ class MaskEstimator(nn.Module):
                                      else getattr(out, f.name)[0])
                             for f in dataclasses.fields(out)})
         return out
+
+
+#: Reference-compatible alias (its configs name the class MaskEstimator_v2).
+MaskEstimator_v2 = MaskEstimator

@@ -1,45 +1,59 @@
-"""Model assembly for serving and training: port of ``tssep_tpu/tasks/model.py``.
+"""Task assembly: port of ``tssep_tpu/tasks/model.py``. Feature extraction,
+mask estimator, enhancer and loss, plus the data pipeline the model owns
+(reference ``tssep/train/model.py``).
 
-``Model.forward`` runs observation -> STFT -> features -> mask estimator ->
-enhancer, and synthesises the separated waveforms with the ISTFT of the
-enhanced STFT. A batch has the layout of ``DeviceMeetingSimulator``'s:
+- **host side** (numpy): dataset construction (``prepare_dataset`` and the
+  ``prepare_*_dataset`` wrappers), target selection, ``collate_fn`` with
+  the ragged-length masks ``_sample_mask`` / ``_frame_mask``,
+  ``host_prepare`` (sample VAD -> frame ``Vad``), ``example_to_device``
+  (to an explicit ``torch.device``);
+- **device side**: ``forward`` runs observation -> STFT -> features -> mask
+  estimator -> enhancer, and synthesises the separated waveforms with the
+  ISTFT of the enhanced STFT; ``review_loss`` applies the loss; ``loss_fn``
+  is what the trainer differentiates.
+
+A batch has the layout of ``collate_fn``'s (or ``DeviceMeetingSimulator``'s):
 ``observation`` (B, C, samples), ``auxInput`` (B, S, A) and
 ``reference_channel``, and for training the loss's target (for example
 ``speaker_reverberation_early_ch0``, (B, S, samples), or the frame activity
 ``Vad``, (B, S, frames)). A batch may instead bring its ``Observation`` (the
 STFT) or its ``Input`` (the features); without an ``Observation`` there is
-no estimate, and only ``VADSigmoidBCE`` can train it.
+no estimate, and only ``VADSigmoidBCE`` can train it. Serving
+(``training=False``) runs without autograd and returns every output;
+training keeps the graph and computes only the outputs the loss reads
+(``Loss.reads``).
 
-``from_config`` builds both stages of the toy recipe
-(``tssep_tpu/exp/init_cfg_common.yaml`` with ``init_cfg_tsvad.yaml`` or
-``init_cfg_tssep.yaml``) and the flagship of ``bench.py:98-106`` from the
-JAX configuration's form.
+The model is a factory configuration (``config/configurable.py``):
+``finalize_dogmatic_config`` derives the estimator's ``idim``, ``odim`` and
+``nmask`` from the feature extractor and the enhancer, as the JAX class does
+(:61-99). ``from_config`` builds the JAX configuration's form (the flagship
+of ``bench.py:98-106``, a recipe's ``eg.trainer.model``) through that route,
+with the port-only options (storage type, device, kernel switches).
 
-Serving (``training=False``) runs without autograd and returns every
-output. ``loss_fn`` is what the trainer differentiates: the forward with
-``training=True`` keeps the graph and computes only the outputs the loss
-reads (``Loss.reads``), and ``review_loss`` applies the loss.
+``add_snapshots`` / ``snapshots`` make the audio, spectrogram and mask
+payloads of a validation forward (reference ``model.py:692-752``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import typing
 
 import numpy as np
 import torch
 from torch import nn
 
-from tssep_tpu_torch.features.extractor import STFTFeatures, fe_from_config
+from tssep_tpu_torch.config.configurable import (
+    Configurable, from_config, get_config, import_class)
+from tssep_tpu_torch.data.dummy import DummyReader
+from tssep_tpu_torch.features import extractor as feature_extractor
 from tssep_tpu_torch.nn.estimator import MaskEstimator
 from tssep_tpu_torch.signal.vad import stft_vad
-from tssep_tpu_torch.tasks.enhancer import (Enhancer, Masking,
-                                            enhancer_from_config)
-from tssep_tpu_torch.tasks.losses import (Loss, LogMAE, VADSigmoidBCE,
-                                          loss_from_config)
+from tssep_tpu_torch.tasks import enhancer as enhancer_mod
+from tssep_tpu_torch.tasks import losses as loss_mod
 from tssep_tpu_torch.utils.device import resolve_device
-from tssep_tpu_torch.utils.factory import factory_name
 
 __all__ = ['Model', 'ForwardOutput']
 
@@ -55,76 +69,74 @@ class ForwardOutput:
     vad_logit: typing.Any = None
 
 
-#: The JAX ``Model``'s default feature extractor (``tssep_tpu/tasks/model.py:
-#: 63-66``); a configuration's ``fe`` without another factory overrides its
-#: settings.
-DEFAULT_FE = {'factory': 'Log1pMaxNormAbsSTFT', 'size': 1024, 'shift': 256,
-              'window': 'hann'}
-
-_CONFIG_KEYS = {'factory', 'fe', 'reader', 'mask_estimator', 'enhancer',
-                'loss'}
+#: example keys that are transferred to the device (everything else stays
+#: on the host)
+_DEVICE_KEY_BASE = ('Input', 'observation', 'auxInput', 'framewise_embeddings',
+                    '_sample_mask', '_frame_mask')
 
 
 def _identity(ex):
     return ex
 
 
-def estimator_config(config: dict, fe: STFTFeatures,
-                     enhancer: Enhancer) -> dict:
-    """The mask estimator's arguments as the JAX configuration derives
-    them: ``idim`` the features' width, ``odim`` the STFT's bins, ``nmask``
-    1 for ``Masking`` and 2 otherwise (``Model.finalize_dogmatic_config``,
-    ``tssep_tpu/tasks/model.py:64-86``), then the estimator's own rules
-    (``MaskEstimator.finalize_dogmatic_config``): without an aux net an
-    i-vector size of 100, with one its ``idim`` the estimator's ``odim``
-    and, for 'cat', the aux net's ``odim`` as the embedding size. Values
-    the configuration sets win."""
-    me_cfg = dict(idim=fe.output_size, odim=fe.frequencies,
-                  nmask=1 if isinstance(enhancer, Masking) else 2)
-    me_cfg.update(config)
-    me_cfg.pop('factory', None)
-    aux_net = me_cfg.get('aux_net')
-    if aux_net is None:
-        me_cfg.setdefault('aux_net_output_size', 100)
-    elif isinstance(aux_net, dict):
-        aux_net = dict(aux_net)
-        aux_net.setdefault('idim', me_cfg.get('odim') or me_cfg['idim'])
-        if (me_cfg.get('combination', 'cat') == 'cat'
-                and 'odim' in config['aux_net']):
-            me_cfg.setdefault('aux_net_output_size', aux_net['odim'])
-        me_cfg['aux_net'] = aux_net
-    return me_cfg
+def _host(x):
+    """A tensor (or array) as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
-class Model(nn.Module):
-    """Feature extractor + mask estimator + enhancer + loss."""
+class Model(nn.Module, Configurable):
+    """Feature extractor + reader + mask estimator + enhancer + loss."""
 
-    def __init__(self, fe: STFTFeatures, mask_estimator: MaskEstimator,
-                 loss: Loss | None = None, enhancer: Enhancer | None = None,
-                 *, pre_net_hook=None, device='cuda'):
+    @classmethod
+    def finalize_dogmatic_config(cls, config):
+        config['fe'] = dict(
+            factory=feature_extractor.Log1pMaxNormAbsSTFT,
+            size=1024, shift=256, window='hann',
+        )
+        config['reader'] = dict(factory=DummyReader)
+        config['enhancer'] = dict(factory=enhancer_mod.Masking)
+
+        # instantiate the fe to derive the estimator's dimensions (mirrors
+        # reference model.py:133-146)
+        fe_cfg = config['fe'].to_dict()
+        fe_obj = from_config(get_config(fe_cfg['factory'], {
+            k: v for k, v in fe_cfg.items() if k != 'factory'}))
+
+        enh_factory = import_class(config['enhancer']['factory'])
+        config['mask_estimator'] = dict(
+            factory=MaskEstimator,
+            idim=fe_obj.output_size,
+            odim=fe_obj.frequencies,
+            nmask=1 if issubclass(enh_factory, enhancer_mod.Masking) else 2,
+        )
+        config['loss'] = dict(factory=loss_mod.LogMAE)
+
+    def __init__(self, fe, reader, mask_estimator: MaskEstimator, enhancer,
+                 loss, *, device='cuda'):
         super().__init__()
         self.device = resolve_device(device)
         self.fe = fe
+        self.reader = reader
         self.mask_estimator = mask_estimator.to(self.device)
-        self.enhancer = Masking() if enhancer is None else enhancer
-        self.loss = LogMAE() if loss is None else loss
+        self.enhancer = enhancer
+        self.loss = loss
         #: The reader's ``data_hooks.pre_net``: a function of the example
-        #: after its features are made (``tssep_tpu/data/dummy.py:113-116``
-        #: is the identity).
-        self.pre_net_hook = _identity if pre_net_hook is None else pre_net_hook
+        #: after its features are made (``DummyReader``'s is the identity).
+        hooks = getattr(reader, 'data_hooks', None)
+        self.pre_net_hook = getattr(hooks, 'pre_net', _identity)
 
     @classmethod
     def from_config(cls, config: dict, *, storage_dtype=torch.bfloat16,
                     device='cuda', cond_fuse=False, fullfuse=True,
                     spill=False, bidi=True):
-        """Build from a config dict of the JAX package's form: the flagship
-        of ``bench.py:98-106``, or a recipe's ``eg.trainer.model``. ``fe``
-        is a feature extractor's configuration (``fe_from_config``; without
-        a ``factory`` it sets ``DEFAULT_FE``'s), ``mask_estimator`` the
-        estimator's keyword arguments (:func:`estimator_config`),
-        ``enhancer`` and ``loss`` ``{'factory': name, ...}`` (default
-        ``Masking`` and ``LogMAE``). ``reader`` configures the data source,
-        which is not part of the model; ``factory`` names the model.
+        """Build from a config of the JAX package's form (the flagship of
+        ``bench.py:98-106``, a recipe's ``eg.trainer.model``): the complete
+        configuration (``get_config``: ``fe`` without another factory takes
+        the JAX ``Model``'s default extractor's settings, the estimator's
+        dimensions follow the features and the enhancer), then
+        ``from_config`` with the port-only options.
 
         ``cond_fuse``, ``fullfuse``, ``spill`` and ``bidi`` choose kernels,
         as the JAX package's ``TSSEP_PALLAS_CONDFUSE``,
@@ -138,32 +150,39 @@ class Model(nn.Module):
         each direction of a layer that takes gate inputs on its own. None
         changes the parameters, so the same named arrays load
         (``compat/from_jax.py``) whatever the switches."""
-        unknown = set(config) - _CONFIG_KEYS
+        device = resolve_device(device)
+        config = dict(config)
+        factory = import_class(config.pop('factory', cls))
+        if not (isinstance(factory, type) and issubclass(factory, Model)):
+            raise ValueError(f'factory {factory!r} is not a Model')
+        unknown = set(config) - {'fe', 'reader', 'mask_estimator',
+                                 'enhancer', 'loss'}
         if unknown:
             raise ValueError(f'unknown config keys {sorted(unknown)}')
-        if factory_name(config.get('factory', 'Model')) != 'Model':
-            raise ValueError(f"factory {config['factory']!r} is not a Model")
-        device = resolve_device(device)
-        fe_cfg = dict(config.get('fe', {}))
-        if factory_name(fe_cfg.get('factory', DEFAULT_FE['factory'])) == \
-                DEFAULT_FE['factory']:
-            fe_cfg = {**DEFAULT_FE, **fe_cfg}
-        fe = fe_from_config(fe_cfg)
-        enhancer = enhancer_from_config(config.get('enhancer'))
-        me_cfg = estimator_config(config.get('mask_estimator', {}), fe,
-                                  enhancer)
-        estimator = MaskEstimator(**me_cfg, storage_dtype=storage_dtype,
-                                  cond_fuse=cond_fuse, fullfuse=fullfuse,
-                                  spill=spill, bidi=bidi, device=device)
-        return cls(fe, estimator, loss_from_config(config.get('loss')),
-                   enhancer, device=device)
+        return from_config(get_config(factory, config),
+                           storage_dtype=storage_dtype, device=device,
+                           cond_fuse=cond_fuse, fullfuse=fullfuse,
+                           spill=spill, bidi=bidi)
 
-    def init_params(self, generator: torch.Generator):
-        self.mask_estimator.init_params(generator)
-        return self
+    # ------------------------------------------------------------------
+    # Data pipeline (host)
+    # ------------------------------------------------------------------
+    @property
+    def _device_keys(self):
+        return set(_DEVICE_KEY_BASE) | self.loss.device_targets()
 
-    def num_params(self):
-        return self.mask_estimator.num_params()
+    def example_to_device(self, ex, device=None):
+        """``ex`` with the arrays the device reads (``_device_keys``) as
+        float32 tensors on ``device`` (default: the model's)."""
+        device = self.device if device is None else torch.device(device)
+        out = dict(ex)
+        for k in self._device_keys:
+            if k in out and isinstance(out[k], np.ndarray):
+                arr = out[k]
+                if arr.dtype == np.float64:
+                    arr = arr.astype(np.float32)
+                out[k] = torch.as_tensor(arr, device=device)
+        return out
 
     def host_prepare(self, ex: dict) -> dict:
         """Host-side target preparation: a sample-domain ``vad`` (S,
@@ -175,6 +194,206 @@ class Model(nn.Module):
                               self.fe.shift, self.fe.fading)
             ex['Vad'] = np.asarray(frames, dtype=np.float32)
         return ex
+
+    def prepare_dataset(
+        self, dataset_name, device=None, training=False, review=True,
+        batch_size=None, prefetch=True, reader=None, sort=False,
+        verbose=False, load_keys=None, host_shard=False, drop_last=False,
+    ):
+        """The reader's ``dataset_name`` as model examples
+        (``tssep_tpu/tasks/model.py:142-247``): targets selected, shuffled
+        when ``training`` (unless sorted longest first), batched and
+        collated with ``batch_size``, prefetched on threads (a failing
+        example is dropped), and moved to ``device`` (the model's by
+        default; ``False`` leaves them on the host)."""
+        if reader is None:
+            reader = self.reader
+        if host_shard:
+            raise NotImplementedError('host_shard (multi-host) is ROADMAP '
+                                      'Queue 1 item 4')
+
+        if sort:
+            def pre_load_apply(ds):
+                def get_num_samples(ex):
+                    try:
+                        return ex['end'] - ex['start']
+                    except KeyError:
+                        pass
+                    ns = ex.get('num_samples')
+                    if isinstance(ns, dict):
+                        return ns.get('observation',
+                                      max(ns.get('original_source', [0])))
+                    return ns
+                return ds.copy(freeze=True).sort(get_num_samples, reverse=True)
+        else:
+            pre_load_apply = None
+
+        if load_keys is None:
+            load_keys = ['observation', *self.loss.targets(lower=True)]
+
+        ds = reader(dataset_name, pre_load_apply=pre_load_apply,
+                    load_keys=load_keys)
+
+        training_flag = training
+
+        def prepare(ex):
+            r = {'reference_channel': 0}
+            try:
+                r['observation'] = ex['audio_data']['observation']
+            except KeyError:
+                if 'Input' in ex:
+                    r['Input'] = ex['Input']
+                else:
+                    raise
+
+            for target_name in self.loss.targets():
+                target_name_lower = target_name.lower()
+                try:
+                    if target_name_lower in ex['audio_data']:
+                        target = ex['audio_data'][target_name_lower]
+                        if isinstance(target, np.ndarray) and target.ndim == 3:
+                            target = target[:, r['reference_channel']]
+                        r[target_name_lower] = target
+                    elif target_name in ('Vad',):
+                        if target_name in ex['audio_data']:
+                            r[target_name] = ex['audio_data'][target_name]
+                    elif review:
+                        raise KeyError(
+                            f'Reader did not load {target_name_lower!r} '
+                            f'(set review=False to allow missing targets)')
+                except KeyError:
+                    if training_flag:
+                        raise
+
+            for k in ('example_id', 'dataset', 'gender', 'auxInput', 'vad',
+                      'transcription', 'speaker_ids',
+                      'framewise_embeddings', 'framewise_embeddings_stride'):
+                if k in ex:
+                    r[k] = ex[k]
+                elif k == 'vad' and 'vad' in ex.get('audio_data', {}):
+                    r[k] = ex['audio_data']['vad']
+
+            r = self.host_prepare(r)
+            if verbose:
+                r['verbose'] = ex
+            return r
+
+        ds = ds.map(prepare)
+
+        if training and not sort:
+            ds = ds.shuffle(reshuffle=True)
+
+        if batch_size is not None:
+            ds = ds.batch(batch_size, drop_last=drop_last)
+            ds = ds.map(self.collate_fn)
+
+        if prefetch:
+            threads = int(os.environ.get('SLURM_CPUS_PER_TASK', 6))
+            ds = ds.prefetch(threads, threads * 2, catch_filter_exception=True)
+        elif training:
+            ds = ds.catch()
+
+        if device is not False:
+            ds = ds.map(lambda ex: self.example_to_device(ex, device))
+        return ds
+
+    #: Padded (bucketed) lengths are rounded up to this many STFT shifts so
+    #: a batch of variable-length examples takes few distinct shapes.
+    pad_shift_multiple = 32
+
+    def _pad_time(self, arrays, target_len):
+        return [np.pad(a, [(0, 0)] * (a.ndim - 1)
+                       + [(0, target_len - a.shape[-1])])
+                for a in arrays]
+
+    def collate_fn(self, exs):
+        """List of example dicts -> batch dict of stacked arrays.
+
+        Variable-length examples are zero-padded on the time axis (rounded
+        up to a shift multiple) and loss masks (``_sample_mask`` /
+        ``_frame_mask``) are attached; the losses then average over valid
+        samples/frames only (``tssep_tpu/tasks/model.py:255-307``).
+        """
+        time_keys = {'observation', 'vad', *self.loss.targets(lower=True)}
+        lengths = [e['observation'].shape[-1] for e in exs
+                   if 'observation' in e]
+        ragged = len(set(lengths)) > 1
+        if ragged:
+            quantum = self.fe.shift * self.pad_shift_multiple
+            target_len = -(-max(lengths) // quantum) * quantum
+            num_frames = [self.fe.num_frames(n) for n in lengths]
+            padded_frames = self.fe.num_frames(target_len)
+
+        keys = exs[0].keys()
+        ex = {}
+        for k in keys:
+            vals = [e[k] for e in exs]
+            if isinstance(vals[0], np.ndarray):
+                if ragged and k in time_keys:
+                    vals = self._pad_time(vals, target_len)
+                elif ragged and k == 'Vad':
+                    vals = self._pad_time(vals, padded_frames)
+                try:
+                    ex[k] = np.stack(vals)
+                except ValueError:
+                    ex[k] = vals  # ragged non-time key
+            else:
+                ex[k] = vals
+
+        if ragged:
+            ex['num_samples'] = np.asarray(lengths)
+            sm = np.zeros((len(exs), 1, target_len), dtype=np.float32)
+            fm = np.zeros((len(exs), 1, padded_frames), dtype=np.float32)
+            for i, (n, nf) in enumerate(zip(lengths, num_frames)):
+                sm[i, 0, :n] = 1
+                fm[i, 0, :nf] = 1
+            ex['_sample_mask'] = sm
+            ex['_frame_mask'] = fm
+        if 'Vad' in ex and isinstance(ex['Vad'], list) and \
+                isinstance(ex['Vad'][0], np.ndarray):
+            try:
+                ex['Vad'] = np.stack(ex['Vad'])
+            except ValueError:
+                pass
+        assert len(set(ex['reference_channel'])) == 1, ex['reference_channel']
+        ex['reference_channel'] = ex['reference_channel'][0]
+        return ex
+
+    def prepare_train_dataset(self, device=None, batch_size=None,
+                              prefetch=True, reader=None, sort=False,
+                              host_shard=False, drop_last=False):
+        return self.prepare_dataset(
+            self.reader.train_dataset_name, device=device, training=True,
+            batch_size=batch_size, prefetch=prefetch, reader=reader,
+            sort=sort, host_shard=host_shard, drop_last=drop_last)
+
+    def prepare_validate_dataset(self, device=None, batch_size=None,
+                                 prefetch=True, reader=None, sort=False,
+                                 host_shard=False, drop_last=False):
+        return self.prepare_dataset(
+            self.reader.validate_dataset_name, device=device, training=False,
+            batch_size=batch_size, prefetch=prefetch, reader=reader,
+            sort=sort, host_shard=host_shard, drop_last=drop_last)
+
+    def prepare_eval_dataset(self, device=None, batch_size=None, prefetch=True,
+                             reader=None, sort=False, load_keys=None):
+        if reader is None:
+            reader = self.reader
+        return self.prepare_dataset(
+            reader.eval_dataset_name, device=device, training=False,
+            review=False, batch_size=batch_size, prefetch=prefetch,
+            reader=reader, sort=sort, verbose=True, load_keys=load_keys)
+
+    # ------------------------------------------------------------------
+    # Device side
+    # ------------------------------------------------------------------
+
+    def init_params(self, generator: torch.Generator):
+        self.mask_estimator.init_params(generator)
+        return self
+
+    def num_params(self):
+        return self.mask_estimator.num_params()
 
     def _tensor(self, value, dtype=torch.float32):
         return torch.as_tensor(value, dtype=dtype, device=self.device)
@@ -222,7 +441,7 @@ class Model(nn.Module):
                 embedding=me_out.embedding, vad_mask=me_out.vad_mask,
                 vad_logit=me_out.vad_logit)
             if 'Observation' not in ex:
-                if not isinstance(self.loss, VADSigmoidBCE):
+                if not isinstance(self.loss, loss_mod.VADSigmoidBCE):
                     raise ValueError(
                         f'a batch without Observation has no estimate to '
                         f'train {self.loss.name} on; only VADSigmoidBCE '
@@ -255,3 +474,87 @@ class Model(nn.Module):
         out = self.forward(ex, generator, training=training)
         loss_sum, loss_value = self.review_loss(ex, out)
         return loss_sum, {'per_example_loss': loss_value}
+
+    # ------------------------------------------------------------------
+    # Snapshots (host side, for tensorboard)
+    # ------------------------------------------------------------------
+    def add_snapshots(self, ex, out: ForwardOutput, summary,
+                      max_speakers=4):
+        """Push audio / spectrogram-image / mask-image payloads for the
+        first example of a batch into a ``ReviewSummary``
+        (``tssep_tpu/tasks/model.py:404-470``; reference
+        ``model.py:692-752`` and the VAD-overlay mask images of
+        ``loss.py:148-169``)."""
+        name = self.enhancer.name
+        sr = getattr(self.reader, 'sample_rate', 16000)
+
+        # The batch may be collated (leading batch dim) or a single raw
+        # example (test_run's pre-flight feeds whatever its dataset
+        # yields): detect from the mask rank, fall back to the observation
+        # rank.
+        if out.mask is not None:
+            batched = out.mask.dim() == 5
+        elif 'observation' in ex:
+            batched = _host(ex['observation']).ndim == 3
+        else:
+            batched = True
+
+        def first(x):  # leading batch entry, on the host
+            x = _host(x)
+            return x[0] if (batched and x.ndim) else x
+
+        if out.time_estimate is not None:
+            est = first(out.time_estimate)
+            summary.add_audio(f'{name}_audio_est', est.reshape(
+                -1, est.shape[-1])[0], sr)
+        if 'observation' in ex:
+            obs = first(ex['observation'])
+            summary.add_audio(f'{name}_audio_observation',
+                              obs.reshape(-1, obs.shape[-1])[0], sr)
+        if 'Observation' in ex:
+            o = first(ex['Observation'])
+            summary.add_stft_image(
+                f'{name}_Observation_stft', o.reshape(
+                    (-1,) + o.shape[-2:])[0])
+        elif 'observation' in ex and hasattr(self.fe, 'stft'):
+            o = _host(self.fe.stft(torch.as_tensor(first(ex['observation']))))
+            summary.add_stft_image(
+                f'{name}_Observation_stft',
+                o.reshape((-1,) + o.shape[-2:])[0])
+        if out.stft_estimate is not None:
+            e = first(out.stft_estimate)
+            summary.add_stft_image(
+                f'{name}_stft_estimate', e.reshape((-1,) + e.shape[-2:])[0])
+        if out.mask is not None:
+            mask = first(out.mask)      # (spk, nmask, T, F)
+            vad = first(ex['Vad']) if 'Vad' in ex else None  # (spk, frames)
+            for s in range(min(mask.shape[0], max_speakers)):
+                m = mask[s].reshape((-1,) + mask.shape[-2:])[0]  # (T, F)
+                img = m
+                if vad is not None and vad.shape[-1] == m.shape[0]:
+                    # VAD-target stripe composited next to the mask
+                    # (reference loss.py:148-169)
+                    width = max(4, m.shape[1] // 16)
+                    sep = np.full((m.shape[0], 2), 0.5, m.dtype)
+                    stripe = np.repeat(
+                        vad[s].astype(m.dtype)[:, None], width, axis=1)
+                    img = np.concatenate([m, sep, stripe], axis=1)
+                summary.add_mask_image(f'mask_spk{s}', img)
+
+    def snapshots(self, ex, out: ForwardOutput):
+        """Audio/image payloads mirroring reference ``model.py:692-752``."""
+        snaps = {}
+        name = self.enhancer.name
+        if out.time_estimate is not None:
+            snaps[f'{name}_audio_est'] = _host(out.time_estimate)
+        if 'observation' in ex:
+            snaps[f'{name}_audio_observation'] = _host(
+                ex['observation'])[..., 0, :]
+        if 'Observation' in ex:
+            snaps[f'{name}_Observation_stft'] = np.abs(
+                _host(ex['Observation']))[..., 0, :, :]
+        if out.mask is not None:
+            snaps['mask'] = _host(out.mask)
+        if out.stft_estimate is not None:
+            snaps[f'{name}_stft_estimate'] = np.abs(_host(out.stft_estimate))
+        return snaps

@@ -91,6 +91,12 @@ class ClippedOptimizer:
     def zero_grad(self):
         self.update.zero_grad(set_to_none=True)
 
+    def state_dict(self):
+        return self.update.state_dict()
+
+    def load_state_dict(self, state):
+        self.update.load_state_dict(state)
+
     def step(self):
         """Clips the gradients and updates the parameters; returns the
         gradients' global norm before the clip, as a tensor (None without
@@ -120,6 +126,17 @@ class MultiSteps:
 
     def zero_grad(self):
         self.inner.zero_grad()
+
+    def state_dict(self):
+        return {'inner': self.inner.state_dict(), 'acc': list(self.acc),
+                'mini_step': self.mini_step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        self.inner.load_state_dict(state['inner'])
+        for acc, value in zip(self.acc, state['acc'], strict=True):
+            acc.copy_(value)
+        self.mini_step = int(state['mini_step'])
 
     @torch.no_grad()
     def step(self):
