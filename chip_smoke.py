@@ -98,7 +98,27 @@ Phases, each of which must pass:
     the warm one must win;
 18. recipe cli flagship: TS-VAD through the CLI at the flagship's widths
     (units 300, projs 320) in bfloat16 for 12 iterations: the stacked
-    birnn2 (2560 wide) adds the bidi pair.
+    birnn2 (2560 wide) adds the bidi pair;
+19. eval flagship: the flagship (bf16) evaluates a 60 s recording of 7
+    channels and 8 speakers (``DummyReader``'s generator stretched, seed 0)
+    through ``tssep_tpu_torch.eval.driver.EvalDriver``: chunks of 316
+    frames every 158, 8 a forward call (``pre_net`` and ``birnn2`` on 8 rows,
+    ``birnn0``/``birnn1`` on 64), once with ``ClassicBF`` (MVDR) and once
+    with masking: the chunk count, 3 fully fused and 1 bidi launch per
+    call, masks and activity against the plain versions in bf16 and f32
+    storage and the diarized frames that differ, the ms per stage (STFT,
+    features, chunked forward with its host copies, stitching, diarization,
+    enhancer, ISTFT, DER), seconds per second of audio, the segments and
+    speaker-frames the enhancer covered, the MVDR timed again with those
+    masks on the recording's reference diarization, the peak memory;
+    ``ClassicBF`` with WPE on the card (``backend='torch'``, float64)
+    against numpy on a reverberant 7-channel mixture of 10 s;
+20. eval cli: ``tssep_tpu_torch.eval.run.main`` (in this process) on phase
+    17's warm-started toy TS-SEP storage dir, f32: masking on 1 channel,
+    then the MVDR on 7 (``eg.trainer.model.reader.num_channels=7
+    beamform=true``); each writes ``metrics.json`` with a calibration
+    without error, finite mean DER and SI-SDR, segments on every recording
+    and WAVs from the native writer.
 
 Before them a ``cond_fuse``, a ``spill`` and a ``bidi=False`` line sum up
 the conditioned, the spill and the one-direction pair in bfloat16 at batch
@@ -133,9 +153,18 @@ import torch  # noqa: E402
 
 from tssep_tpu_torch.data.device_sim import (  # noqa: E402
     DeviceMeetingSimulator, DeviceSimDataset)
+from tssep_tpu_torch.data.dummy import (  # noqa: E402
+    dummy_example, staircase_vad, wiener_like_mask)
+from tssep_tpu_torch.eval import driver as eval_driver  # noqa: E402
+from tssep_tpu_torch.eval import run as eval_cli  # noqa: E402
+from tssep_tpu_torch.eval.classic_bf import ClassicBF  # noqa: E402
+from tssep_tpu_torch.eval.metrics import si_sdr  # noqa: E402
+from tssep_tpu_torch.eval.wpe import WPE  # noqa: E402
 from tssep_tpu_torch.kernels import _build  # noqa: E402
 from tssep_tpu_torch.kernels import blstm as kb  # noqa: E402
 from tssep_tpu_torch.nn import rnnp  # noqa: E402
+from tssep_tpu_torch.signal.intervals import ArrayInterval  # noqa: E402
+from tssep_tpu_torch.signal.vad import stft_vad  # noqa: E402
 from tssep_tpu_torch.tasks.model import Model  # noqa: E402
 from tssep_tpu_torch.config.configurable import from_config  # noqa: E402
 from tssep_tpu_torch.train import run as cli  # noqa: E402
@@ -306,6 +335,15 @@ RECIPE_CLI_CASES = [
 #: (label, B, T, F, H) of the fully fused kernel's calls and (label, B, T, H)
 #: of the bidi kernel's. The 'serve' rows are one request of batch 16, the
 #: others the flagship training shapes at batch 256.
+#: The long-recording eval's forward call (``eval/driver.py``, 8 chunks of
+#: 316 frames at the flagship's widths): pre_net and the stacked birnn2 on 8
+#: rows, birnn0 and birnn1 on 8 chunks x 8 speakers = 64 rows.
+EVAL_BATCH_CHUNKS = 8
+EVAL_CASES = [('eval pre_net', EVAL_BATCH_CHUNKS, FRAMES, BINS, HIDDEN),
+              ('eval birnn0', EVAL_BATCH_CHUNKS * SPEAKERS, FRAMES, BINS,
+               HIDDEN),
+              ('eval birnn1', EVAL_BATCH_CHUNKS * SPEAKERS, FRAMES, 320,
+               HIDDEN)]
 FULLFUSED_CASES = [('ragged', 13, 23, 12, 16),
                    ('serve pre_net', 16, FRAMES, BINS, HIDDEN),
                    ('serve birnn0', 16 * SPEAKERS, FRAMES, BINS, HIDDEN),
@@ -313,12 +351,13 @@ FULLFUSED_CASES = [('ragged', 13, 23, 12, 16),
                    ('pre_net', 256, FRAMES, BINS, HIDDEN),
                    ('birnn0', 256 * SPEAKERS, FRAMES, BINS, HIDDEN),
                    ('birnn1', 256 * SPEAKERS, FRAMES, 320, HIDDEN),
-                   *RECIPE_CASES, *RECIPE_CLI_CASES]
+                   *RECIPE_CASES, *RECIPE_CLI_CASES, *EVAL_CASES]
 #: 'fullfuse=False' rows are the folded layers' calls on that path.
 BIDI_CASES = [('ragged', 13, 23, 16),
               ('serve birnn2', 16, FRAMES, HIDDEN),
               ('birnn2', 256, FRAMES, HIDDEN),
-              ('fullfuse=False birnn0', 16 * SPEAKERS, FRAMES, HIDDEN)]
+              ('fullfuse=False birnn0', 16 * SPEAKERS, FRAMES, HIDDEN),
+              ('eval birnn2', EVAL_BATCH_CHUNKS, FRAMES, HIDDEN)]
 #: The backward kernels' calls: 'train' rows are one training step at
 #: batch 16, the others the bench's batch 256.
 FULLFUSED_BWD_CASES = [('ragged', 13, 23, 12, 16),
@@ -1874,9 +1913,10 @@ def _resume_skip(eg):
     return out
 
 
-def phase_recipe_cli():
+def phase_recipe_cli(tmp):
     """The toy recipe's two stages through ``tssep_tpu_torch.train.run.main``
-    on the card in a temporary directory, float32 (the CLI's default):
+    on the card in the directory ``tmp`` (the ``eval cli`` phase evaluates
+    its ``warm`` storage dir), float32 (the CLI's default):
     TS-VAD trained ``RECIPE_VAD[0]`` iterations with checkpoints and
     validation; TS-SEP warm-started from its ``ckpt_best_loss.npz`` and
     cold-started, each trained a few iterations; the zero-shot validation
@@ -1884,38 +1924,36 @@ def phase_recipe_cli():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.environ.pop('TSSEP_COMPUTE_DTYPE', None)
-    with tempfile.TemporaryDirectory(prefix='tssep_recipe_') as tmp:
-        tmp = Path(tmp)
-        vad_args = _stage_args('tsvad', tmp / 'tsvad', RECIPE_VAD)
-        eg, vad = _cli_run('recipe cli tsvad', ['train', *vad_args],
-                           RECIPE_CLI_KERNELS, RECIPE_VAD)
-        me = eg.trainer.model.mask_estimator
-        check((me.units, me.projs, me.storage_dtype)
-              == (RECIPE_CLI_UNITS, RECIPE_CLI_PROJS, F32),
-              'recipe cli: the YAML\'s widths in float32')
-        check(vad['train_losses'][-1] < vad['train_losses'][0],
-              f'recipe cli tsvad: the loss falls, {vad["train_losses"]}')
-        vad['profiled_step'] = _recipe_step('recipe cli tsvad', eg)
-        vad['resume_first_batch_ms'] = _resume_skip(eg)
-        best = (tmp / 'tsvad' / 'checkpoints' / 'ckpt_best_loss.npz').resolve()
-        warm = _stage_args('tssep', tmp / 'warm', RECIPE_SEP,
-                           f'eg.init_ckpt.init_ckpt={best}')
-        cold = _stage_args(
-            'tssep', tmp / 'cold', RECIPE_SEP,
-            'eg.init_ckpt={factory: '
-            'tssep_tpu_torch.train.init_ckpt.InitCheckPoint}')
-        zero = {'warm': _zero_shot(warm), 'cold': _zero_shot(cold)}
-        log(f'recipe cli: zero-shot TS-SEP: {json.dumps(zero)}')
-        runs = {}
-        for name, args in (('warm', warm), ('cold', cold)):
-            _, runs[name] = _cli_run(f'recipe cli tssep {name}',
-                                     ['train', *args], RECIPE_CLI_KERNELS,
-                                     RECIPE_SEP)
-        check(zero['warm']['validation_loss'] < zero['cold']['validation_loss']
-              and zero['warm']['si_sdr_gain_db']
-              > zero['cold']['si_sdr_gain_db'],
-              f'recipe cli: the warm start beats the cold start at zero '
-              f'shot, {zero}')
+    vad_args = _stage_args('tsvad', tmp / 'tsvad', RECIPE_VAD)
+    eg, vad = _cli_run('recipe cli tsvad', ['train', *vad_args],
+                       RECIPE_CLI_KERNELS, RECIPE_VAD)
+    me = eg.trainer.model.mask_estimator
+    check((me.units, me.projs, me.storage_dtype)
+          == (RECIPE_CLI_UNITS, RECIPE_CLI_PROJS, F32),
+          'recipe cli: the YAML\'s widths in float32')
+    check(vad['train_losses'][-1] < vad['train_losses'][0],
+          f'recipe cli tsvad: the loss falls, {vad["train_losses"]}')
+    vad['profiled_step'] = _recipe_step('recipe cli tsvad', eg)
+    vad['resume_first_batch_ms'] = _resume_skip(eg)
+    best = (tmp / 'tsvad' / 'checkpoints' / 'ckpt_best_loss.npz').resolve()
+    warm = _stage_args('tssep', tmp / 'warm', RECIPE_SEP,
+                       f'eg.init_ckpt.init_ckpt={best}')
+    cold = _stage_args(
+        'tssep', tmp / 'cold', RECIPE_SEP,
+        'eg.init_ckpt={factory: '
+        'tssep_tpu_torch.train.init_ckpt.InitCheckPoint}')
+    zero = {'warm': _zero_shot(warm), 'cold': _zero_shot(cold)}
+    log(f'recipe cli: zero-shot TS-SEP: {json.dumps(zero)}')
+    runs = {}
+    for name, args in (('warm', warm), ('cold', cold)):
+        _, runs[name] = _cli_run(f'recipe cli tssep {name}',
+                                 ['train', *args], RECIPE_CLI_KERNELS,
+                                 RECIPE_SEP)
+    check(zero['warm']['validation_loss'] < zero['cold']['validation_loss']
+          and zero['warm']['si_sdr_gain_db']
+          > zero['cold']['si_sdr_gain_db'],
+          f'recipe cli: the warm start beats the cold start at zero '
+          f'shot, {zero}')
     return {'tsvad': vad, 'tssep warm': runs['warm'],
             'tssep cold': runs['cold'], 'zero_shot': zero}
 
@@ -1943,6 +1981,303 @@ def phase_recipe_cli_flagship():
     finally:
         os.environ.pop('TSSEP_COMPUTE_DTYPE', None)
     return out
+
+
+#: The long-recording eval (``tssep_tpu_torch/eval``): a recording of 60 s,
+#: 7 channels and 8 speakers made from seed 0 by ``DummyReader``'s generator
+#: (its staircase VAD stretched to 60 s) and its aux; chunks of 316 frames
+#: (5 s) every 158, 8 a forward call.
+EVAL_SECONDS, EVAL_CHANNELS = 60, 7
+EVAL_CHUNK, EVAL_HOP = FRAMES, FRAMES // 2
+#: Per forward call of the flagship: pre_net, birnn0 and birnn1 fully fused,
+#: the stacked birnn2 on the bidi pair.
+EVAL_PER_CALL = {'blstm_fullfused_fwd': 3, 'blstm_bidi_fwd': 1}
+#: ClassicBF's WPE on the card (``wpe_torch``, float64) against the numpy
+#: float64 WPE, on a reverberant mixture of the recording's first seconds'
+#: shape: white-noise speakers under the staircase VAD, each convolved per
+#: channel with a random exponentially decaying response (-60 dB over
+#: 0.25 s), oracle masks and diarization. The enhanced STFT's max abs error
+#: over its peak (the same float64 statistics, summed in another order).
+#: DummyReader's sinusoids do not serve here: a pure tone is predicted
+#: exactly, its residual power falls to the 1/power weights' floor, and
+#: WPE's statistics turn singular (numpy's complex solve and a float64
+#: real-block solve then differ by 0.43 of the peak).
+WPE_SECONDS, WPE_TOL, WPE_RT = 10, 1e-6, 0.25
+#: ``eval cli``: the toy recipe's forward per call at its own widths, every
+#: layer fully fused (birnn2 8 x 42 = 336 wide).
+EVAL_CLI_PER_CALL = {'blstm_fullfused_fwd': 4}
+
+
+def _eval_recording():
+    """(observation, aux, vad, speakers' signals) of the eval recording."""
+    ex = dummy_example(0, 16_000 * EVAL_SECONDS, SPEAKERS, EVAL_CHANNELS,
+                       aux_size=BINS,
+                       load_keys=('speaker_reverberation_early_ch0',))
+    audio = ex['audio_data']
+    return (audio['observation'], ex['auxInput'], audio['vad'],
+            audio['speaker_reverberation_early_ch0'])
+
+
+def _eval_driver(model):
+    driver = eval_driver.EvalDriver(model, chunk_frames=EVAL_CHUNK,
+                                    hop_frames=EVAL_HOP)
+    check(driver.chunked.batch_chunks == EVAL_BATCH_CHUNKS,
+          f'eval: {driver.chunked.batch_chunks} chunks per forward call')
+    return driver
+
+
+def _eval_run(label, driver, recording, beamform, calls):
+    """One recording through ``driver`` with the launch counts set to 0
+    just before and read just after: checks the outputs and the launches
+    (``EVAL_PER_CALL`` per forward call); the ms per stage, DER scoring
+    included."""
+    obs, aux, vad, speakers = recording
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = driver.run_recording(obs, aux, beamform=beamform)
+    t1 = time.perf_counter()
+    score = driver.score_der(result, vad)
+    t2 = time.perf_counter()
+    launches = _launches()
+    masks, est = result['masks'], result['time_estimate']
+    frames = driver.model.fe.num_frames(obs.shape[-1])
+    check(masks.shape == (SPEAKERS, 1, frames, BINS)
+          and masks.dtype == np.float32, f'{label}: masks {masks.shape}')
+    check(est.shape == (SPEAKERS, obs.shape[-1]),
+          f'{label}: waveforms {est.shape}')
+    check(bool(np.isfinite(masks).all() and np.isfinite(est).all()
+               and np.isfinite(result['activity']).all()),
+          f'{label}: finite outputs')
+    check(result['num_segments'] > 0 and result['beamformed'] == beamform,
+          f'{label}: {result["num_segments"]} segments')
+    check(launches == _expect(EVAL_PER_CALL, calls),
+          f'{label}: {EVAL_PER_CALL} per forward call, {calls} calls, got '
+          f'{launches}')
+    stage_ms = dict(result['stage_ms'], der=1e3 * (t2 - t1))
+    vals = si_sdr(speakers, est)
+    out = {'launches': launches, 'stage_ms': stage_ms,
+           'ms': 1e3 * (t2 - t0), 'run_ms': 1e3 * (t1 - t0),
+           'seconds_per_audio_second': (t2 - t0) / EVAL_SECONDS,
+           'num_segments': result['num_segments'],
+           'frames_covered': _frames_covered(result['dia']),
+           'der': score['der'],
+           'si_sdr_db': float(np.mean(vals[np.isfinite(vals)]))}
+    log(f'{label}: {json.dumps(out)}')
+    return result, out
+
+
+def _frames_covered(dia):
+    """(speaker, frame) pairs inside a diarized segment."""
+    return int(sum(np.asarray(ai, dtype=bool).sum() for ai in dia))
+
+
+def _reference_enhancer(driver, recording, result):
+    """The enhancer timed on the recording's reference diarization (its
+    own VAD through ``stft_vad``: every speaker's runs) with ``result``'s
+    masks, so that its time is that of the segments an evaluated meeting
+    has rather than of the random model's diarization. Returns the ms, the
+    segments and the frames covered, and the seconds per second of audio
+    of the run with this enhancer time in place of its own."""
+    obs, _, vad, speakers = recording
+    fe = driver.model.fe
+    dia = [ArrayInterval(a) for a in stft_vad(vad, fe.window_length,
+                                              fe.shift, fe.fading)]
+    obs_host = eval_driver.to_numpy(driver.stft(obs)).astype(np.complex128)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = driver.enhancer(result['masks'], obs_host, dia)
+    ms = 1e3 * (time.perf_counter() - t0)
+    check(bool(np.isfinite(est).all()), 'eval reference enhancer: finite')
+    segments = sum(len(ai.normalized_intervals) for ai in dia)
+    check(segments > 0, 'eval reference enhancer: segments')
+    return {'enhancer_ms': ms, 'num_segments': segments,
+            'frames_covered': _frames_covered(dia)}
+
+
+def _eval_agreement(label, driver, recording, result, dtype):
+    """The same driver's masks and activity through the plain versions,
+    at ``SERVE_ATOL``; the diarized frames that differ."""
+    obs, aux, *_ = recording
+    with _plain_versions():
+        masks, activity = driver.chunked(driver.stft(obs), aux)
+    mask_err = float(np.abs(result['masks'] - masks).max())
+    act_err = float(np.abs(result['activity'] - activity).max())
+    dia = eval_driver.diarize_from_activity(
+        activity, driver.vad_threshold, driver.smooth_kernel,
+        driver.min_frames, driver.merge_gap_frames, driver.pad_frames)
+    flipped = int(sum((np.asarray(a) != np.asarray(b)).sum()
+                      for a, b in zip(dia, result['dia'])))
+    log(f'{label} {dtype}: kernels against plain versions: masks max abs '
+        f'err {mask_err:.3g}, activity {act_err:.3g} (tolerance '
+        f'{SERVE_ATOL[dtype]}); diarized frames that differ: {flipped} of '
+        f'{activity.size}')
+    check(mask_err <= SERVE_ATOL[dtype] and act_err <= SERVE_ATOL[dtype],
+          f'{label} {dtype}: masks and activity against the plain versions')
+    return {'mask_err': mask_err, 'activity_err': act_err,
+            'dia_frames_differ': flipped}
+
+
+def _reverberant_mixture(seconds, seed=0):
+    """(observation (mic, samples), speaker images at channel 0, sample
+    VAD) of white-noise speakers convolved with random decaying
+    responses."""
+    import scipy.signal
+    rng = np.random.default_rng(seed)
+    n = 16_000 * seconds
+    vad = staircase_vad(n, SPEAKERS)
+    taps = int(WPE_RT * 16_000)
+    rirs = (rng.standard_normal((SPEAKERS, EVAL_CHANNELS, taps))
+            * np.exp(-6.9 * np.arange(taps) / taps))
+    images = scipy.signal.fftconvolve(
+        (rng.standard_normal((SPEAKERS, n)) * vad)[:, None], rirs,
+        axes=-1)[..., :n]
+    obs = images.sum(0) + 1e-3 * rng.standard_normal((EVAL_CHANNELS, n))
+    return obs.astype(np.float32), images[:, 0].astype(np.float32), vad
+
+
+def _wpe_against_numpy(model):
+    """``ClassicBF(pre_wpe=WPE(backend='torch'))`` against the numpy WPE on
+    a reverberant mixture, the oracle masks and diarization; both timed."""
+    obs, images, vad = _reverberant_mixture(WPE_SECONDS)
+    fe = model.fe
+
+    def stft(x):
+        return eval_driver.to_numpy(fe.stft(torch.as_tensor(
+            x, device='cuda'))).astype(np.complex128)
+
+    observation, image_stft = stft(obs), stft(images)
+    masks = wiener_like_mask(np.abs(image_stft)[:, None])
+    dia = [ArrayInterval(a) for a in stft_vad(vad, fe.window_length,
+                                              fe.shift, fe.fading)]
+    out, ms = {}, {}
+    for backend in ('torch', 'numpy'):
+        enhancer = ClassicBF(pre_wpe=WPE(backend=backend, device='cuda'))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[backend] = enhancer(masks, observation, dia)
+        torch.cuda.synchronize()
+        ms[backend] = 1e3 * (time.perf_counter() - t0)
+    peak = float(np.abs(out['numpy']).max())
+    err = float(np.abs(out['torch'] - out['numpy']).max()) / peak
+    log(f'eval flagship: ClassicBF with WPE on a reverberant mixture, '
+        f'{WPE_SECONDS} s, {EVAL_CHANNELS} channels (taps 10, delay 2, 3 '
+        f'iterations): torch float64 on the card {ms["torch"]:.1f} ms, numpy '
+        f'{ms["numpy"]:.1f} ms; enhanced STFT max abs err / peak {err:.3g} '
+        f'(tolerance {WPE_TOL})')
+    check(err <= WPE_TOL, 'WPE torch against numpy')
+    return {'ms': ms, 'err': err}
+
+
+def phase_eval_flagship():
+    """The flagship (bf16, random weights from seed 0) evaluates the 60 s
+    recording through ``EvalDriver``: with ``ClassicBF`` (MVDR) and with
+    masking, ceil(chunks / 8) forward calls each; masks and activity
+    against the plain versions in bf16 and in f32 storage; the ms per
+    stage; the MVDR on the reference diarization; the peak memory;
+    ClassicBF's WPE on the card against numpy on a
+    reverberant mixture."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    recording = _eval_recording()
+    model = _flagship()
+    driver = _eval_driver(model)
+    frames = model.fe.num_frames(recording[0].shape[-1])
+    chunks = len(eval_driver._chunk_starts(frames, EVAL_CHUNK, EVAL_HOP))
+    calls = -(-chunks // EVAL_BATCH_CHUNKS)
+    log(f'eval flagship: {EVAL_SECONDS} s, {EVAL_CHANNELS} channels, '
+        f'{frames} frames, {chunks} chunks of {EVAL_CHUNK} every {EVAL_HOP}, '
+        f'{calls} forward calls of {EVAL_BATCH_CHUNKS}')
+    driver.run_recording(*recording[:2], beamform=False)      # warm-up
+    runs = {}
+    for name, beamform in (('beamform', True), ('masking', False)):
+        result, runs[name] = _eval_run(f'eval flagship {name}', driver,
+                                       recording, beamform, calls)
+        if beamform:
+            ref = _reference_enhancer(driver, recording, result)
+            run = runs[name]
+            ref['seconds_per_audio_second'] = (
+                run['ms'] - run['stage_ms']['enhancer']
+                + ref['enhancer_ms']) / 1e3 / EVAL_SECONDS
+            run['reference_dia'] = ref
+            log(f'eval flagship beamform: enhancer '
+                f'{run["stage_ms"]["enhancer"]:.1f} ms on the model\'s '
+                f'{run["num_segments"]} segments ({run["frames_covered"]} '
+                f'speaker-frames), {ref["enhancer_ms"]:.1f} ms on the '
+                f'reference diarization\'s {ref["num_segments"]} segments '
+                f'({ref["frames_covered"]} speaker-frames); with the '
+                f'latter {ref["seconds_per_audio_second"]:.4f} s per second '
+                f'of audio')
+    agree = {'bf16': _eval_agreement('eval flagship', driver, recording,
+                                     result, BF16)}
+    driver32 = _eval_driver(_flagship(F32))
+    result32 = driver32.run_recording(*recording[:2], beamform=False)
+    agree['f32'] = _eval_agreement('eval flagship', driver32, recording,
+                                   result32, F32)
+    peak = _peak_mib(lambda: driver.run_recording(*recording[:2],
+                                                  beamform=False))
+    log(f'eval flagship: peak memory of one recording over the weights '
+        f'(MiB): {peak:.2f}')
+    wpe = _wpe_against_numpy(model)
+    return {'chunks': chunks, 'calls': calls, **runs, 'agreement': agree,
+            'peak_mib': peak, 'wpe': wpe}
+
+
+def _eval_cli_run(label, storage, *overrides):
+    """``tssep_tpu_torch.eval.run.main`` on ``storage``'s config.yaml in
+    this process on the card, the launch counts set to 0 just before and
+    read just after; checks metrics.json."""
+    out_dir = storage / f'eval_{label.split()[-1]}'
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = eval_cli.main(['with', str(storage / 'config.yaml'),
+                             f'out={out_dir}', *overrides])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    check(json.loads((out_dir / 'metrics.json').read_text()) == metrics,
+          f'{label}: metrics.json written')
+    summary, records = metrics['summary'], metrics['per_recording']
+    calibration = metrics['calibration']
+    check(calibration is not None and 'error' not in calibration,
+          f'{label}: calibration without error, got {calibration}')
+    check(math.isfinite(summary.get('mean_der', math.nan))
+          and math.isfinite(summary.get('mean_si_sdr', math.nan)),
+          f'{label}: finite mean DER and SI-SDR, got {summary}')
+    check(records and all(r['num_segments'] > 0 for r in records),
+          f'{label}: segments on every recording')
+    check(metrics['wav_writer'] == 'native',
+          f'{label}: the native WAV writer, got {metrics["wav_writer"]}')
+    wavs = sorted((out_dir / 'audio').glob('*.wav'))
+    check(len(wavs) == SPEAKERS * len(records), f'{label}: {len(wavs)} WAVs')
+    # a forward call for each calibration example and each recording, all
+    # shorter than a chunk
+    calls = min(4, len(records)) + len(records)
+    check(launches == _expect(EVAL_CLI_PER_CALL, calls),
+          f'{label}: {EVAL_CLI_PER_CALL} per forward call, {calls} calls, '
+          f'got {launches}')
+    ms = [sum(r['stage_ms'].values()) for r in records]
+    out = {'summary': summary, 'degenerate': summary.get('degenerate', False),
+           'calibration': calibration, 'launches': launches,
+           'ms_per_recording': ms, 'seconds': seconds,
+           'wav_writer': metrics['wav_writer']}
+    log(f'{label}: {json.dumps(out)}')
+    return out
+
+
+def phase_eval_cli(storage):
+    """The port's eval CLI on the warm-started toy TS-SEP of ``recipe
+    cli`` (its YAML's widths in float32, the CLI's default): masking on
+    the reader's 1 channel, then the MVDR on 7."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.pop('TSSEP_COMPUTE_DTYPE', None)
+    return {'masking': _eval_cli_run('eval cli masking', storage,
+                                     'beamform=false'),
+            'beamform': _eval_cli_run(
+                'eval cli beamform', storage,
+                'eg.trainer.model.reader.num_channels=7', 'beamform=true')}
 
 
 def pair_summary(switch, pair, rows, serving, training):
@@ -2073,13 +2408,19 @@ def main():
                 label, MVDR, PER_REQUEST, MVDR_CHANNELS))):
         switched[label] = run(label)
         log(f'-- {label} done at {time.perf_counter() - t0:.1f} s')
-    recipe = phase_recipe_cli()
-    log(f'-- recipe cli done at {time.perf_counter() - t0:.1f} s')
-    recipe_flagship = phase_recipe_cli_flagship()
-    log(f'-- recipe cli flagship done at {time.perf_counter() - t0:.1f} s')
+    with tempfile.TemporaryDirectory(prefix='tssep_recipe_') as tmp:
+        recipe = phase_recipe_cli(Path(tmp))
+        log(f'-- recipe cli done at {time.perf_counter() - t0:.1f} s')
+        recipe_flagship = phase_recipe_cli_flagship()
+        log(f'-- recipe cli flagship done at {time.perf_counter() - t0:.1f} s')
+        evaluated = phase_eval_flagship()
+        log(f'-- eval flagship done at {time.perf_counter() - t0:.1f} s')
+        evaluated_cli = phase_eval_cli(Path(tmp) / 'warm')
+        log(f'-- eval cli done at {time.perf_counter() - t0:.1f} s')
     log(json.dumps({'serving cond_fuse': serving_cond, 'training': training,
                     **switched, 'recipe cli': recipe,
-                    'recipe cli flagship': recipe_flagship}))
+                    'recipe cli flagship': recipe_flagship,
+                    'eval flagship': evaluated, 'eval cli': evaluated_cli}))
     pair_summary('cond_fuse', ('blstm_fullfused_cond_fwd',
                                'blstm_fullfused_cond_bwd'), rows,
                  serving_cond, switched['train cond_fuse'])
@@ -2096,7 +2437,11 @@ def main():
         **{label: r['launches'] for label, r in switched.items()},
         **{f'recipe cli {name}': recipe[name]['launches']
            for name in ('tsvad', 'tssep warm', 'tssep cold')},
-        'recipe cli flagship': recipe_flagship['launches']})))
+        'recipe cli flagship': recipe_flagship['launches'],
+        **{f'eval flagship {name}': evaluated[name]['launches']
+           for name in ('beamform', 'masking')},
+        **{f'eval cli {name}': evaluated_cli[name]['launches']
+           for name in ('masking', 'beamform')}})))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

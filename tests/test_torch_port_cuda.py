@@ -805,3 +805,46 @@ def test_cluster_lstm_capacity_is_that_of_the_kernel_that_runs(gen, kind):
         assert geo.clusters == geo.tiles
         assert geo.clusters_per_wave == min(held, geo.clusters)
         assert geo.waves == 1
+
+
+# The long-recording eval's shapes (``eval/driver.py``, 8 chunks of 316
+# frames a forward call at the flagship's widths): pre_net on 8 rows at F
+# 513, birnn0 and birnn1 on 8 chunks x 8 speakers = 64 rows at F 320, the
+# stacked birnn2 on 8 rows through the bidi pair; and a recording shorter
+# than a chunk (T 120: the chunk becomes the recording). bfloat16 at the
+# clustered kernels' tolerance, float32 (the CLI's default) at ATOL.
+EVAL_FULLFUSED_CASES = [(8, 316, 513), (64, 316, 513), (64, 316, 320),
+                        (8, 120, 513), (64, 120, 320)]
+EVAL_BIDI_CASES = [(8, 316), (8, 120)]
+EVAL_TOL = {torch.bfloat16: CLUSTER_FWD_ATOL, torch.float32: ATOL[
+    torch.float32]}
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('B,T,F', EVAL_FULLFUSED_CASES)
+def test_eval_fullfused_fwd_matches_plain(gen, dtype, B, T, F):
+    H = 300
+    x = torch.randn(B, T, F, generator=gen, device='cuda').to(dtype)
+    w_ih_t = _uniform(gen, (2, F, 4 * H), H ** -0.5, dtype)
+    w_hh_t = _uniform(gen, (2, H, 4 * H), H ** -0.5, dtype)
+    bias = _uniform(gen, (2, 4 * H), H ** -0.5, torch.float32)
+    before = kb.blstm_fullfused_fwd.launches
+    got, _ = kb.blstm_fullfused_fwd(x, w_ih_t, w_hh_t, bias)
+    assert kb.blstm_fullfused_fwd.launches == before + 1
+    want, _ = kb.blstm_fullfused_fwd_plain(x, w_ih_t, w_hh_t, bias)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=EVAL_TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('B,T', EVAL_BIDI_CASES)
+def test_eval_bidi_fwd_matches_plain(gen, dtype, B, T):
+    H = 300
+    xg = torch.randn(B, T, 8 * H, generator=gen, device='cuda').to(dtype)
+    w_hh_t = _uniform(gen, (2, H, 4 * H), H ** -0.5, dtype)
+    before = kb.blstm_bidi_fwd.launches
+    got, _ = kb.blstm_bidi_fwd(xg, w_hh_t)
+    assert kb.blstm_bidi_fwd.launches == before + 1
+    want, _ = kb.blstm_bidi_fwd_plain(xg, w_hh_t)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=EVAL_TOL[dtype], rtol=0)

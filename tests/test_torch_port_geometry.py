@@ -155,6 +155,31 @@ def test_geometry_at_recipe_shapes():
         assert geo.shared <= 232448
 
 
+def test_geometry_at_eval_shapes():
+    """The long-recording eval's forward calls at the flagship's widths
+    (8 chunks a call): pre_net on 8 rows at F 513 and the stacked birnn2 on
+    8 rows (xg 8H wide) each fill one 8-row tile of 2 clusters (one a
+    direction); birnn0 and birnn1 on 64 rows (F 513 and 320) take 16-row
+    tiles on the card, 8 clusters in one wave (8-row tiles, 16 clusters,
+    without the card's answer); the chunk length does not enter the plan.
+    """
+    def g(kind, rows, F, slots):
+        geo = kb.cluster_geometry(kind, rows, F, 300, slots=slots)
+        _check(geo, rows, F, 300)
+        return (geo.cluster, geo.units, geo.active, geo.row_tile, geo.tiles,
+                geo.threads, geo.chunk, geo.k_block, geo.clusters, geo.waves)
+
+    for slots in (None, _h100_slots):
+        assert g('fwd', 8, 513, slots) == (8, 40, 8, 8, 1, 640, 4, 528, 2, 1)
+        assert g('fwd_xg', 8, 8 * 300, slots) == (8, 40, 8, 8, 1, 640, 8, 0,
+                                                  2, 1)
+    for F, k_block in ((513, 528), (320, 320)):
+        assert g('fwd', 64, F, _h100_slots) == (8, 40, 8, 16, 4, 640, 2,
+                                                k_block, 8, 1)
+        assert g('fwd', 64, F, None) == (8, 40, 8, 8, 8, 640, 4, k_block, 16,
+                                         1)
+
+
 def _unfragment(frags):
     """(..., M/16, K/16, 32, 8) -> (..., M, K), reading each lane's values
     by mma.m16n8k16's A layout as PTX states it: value i of lane 4 g + t is

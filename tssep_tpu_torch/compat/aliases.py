@@ -2,8 +2,8 @@
 written for the torch reference (``tssep.train.*`` dotted paths) resolve to
 the port's classes, so a user can point the port at an existing reference
 ``config.yaml``. The targets are the JAX package's paths under
-``tssep_tpu_torch.``; those under ``features/kaldi.py`` and ``eval/`` wait
-for their modules (ROADMAP Queue 1 item 5) and raise ``ImportError`` until
+``tssep_tpu_torch.``; those under ``features/kaldi.py`` wait for their
+module (ROADMAP Queue 1 item 5c) and raise ``NotImplementedError`` until
 then.
 """
 

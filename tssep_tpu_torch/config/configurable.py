@@ -63,11 +63,12 @@ _PORT_PACKAGE = 'tssep_tpu_torch.'
 #: Modules of the JAX package the port has not ported yet, and where they
 #: stand in ROADMAP.md.
 NOT_PORTED = {
-    'tssep_tpu_torch.features.kaldi': 'ROADMAP Queue 1 item 5',
-    'tssep_tpu_torch.eval.': 'ROADMAP Queue 1 item 5',
-    'tssep_tpu_torch.data.simulate': 'ROADMAP Queue 1 item 5',
-    'tssep_tpu_torch.data.shard_corpus': 'ROADMAP Queue 1 item 5',
-    'tssep_tpu_torch.data.import_corpus': 'ROADMAP Queue 1 item 5',
+    'tssep_tpu_torch.features.kaldi': 'ROADMAP Queue 1 item 5c',
+    'tssep_tpu_torch.eval.streaming': 'ROADMAP Queue 1 item 5c',
+    'tssep_tpu_torch.eval.ctc': 'ROADMAP Queue 1 item 5b',
+    'tssep_tpu_torch.data.simulate': 'ROADMAP Queue 1 item 5b',
+    'tssep_tpu_torch.data.shard_corpus': 'ROADMAP Queue 1 item 5b',
+    'tssep_tpu_torch.data.import_corpus': 'ROADMAP Queue 1 item 5b',
     'tssep_tpu_torch.dist.': 'ROADMAP Queue 1 item 4',
 }
 
@@ -78,7 +79,8 @@ _FACTORY_MODULES = (
     'tssep_tpu_torch.tasks.losses', 'tssep_tpu_torch.tasks.model',
     'tssep_tpu_torch.data.dummy', 'tssep_tpu_torch.train.optimizer',
     'tssep_tpu_torch.train.trainer', 'tssep_tpu_torch.train.experiment',
-    'tssep_tpu_torch.train.init_ckpt')
+    'tssep_tpu_torch.train.init_ckpt', 'tssep_tpu_torch.eval.classic_bf',
+    'tssep_tpu_torch.eval.wpe')
 
 
 # ---------------------------------------------------------------------------

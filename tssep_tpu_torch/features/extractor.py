@@ -339,7 +339,7 @@ _CLASSES.update(TorchMFCC=MFCC,
                 ConcaternatedSTFTFeatures=ConcatenatedSTFTFeatures)
 
 #: Waveform feature extractors of the JAX package that are not ported yet.
-_NOT_PORTED = {'KaldiMFCC': 'features/kaldi.py, ROADMAP Queue 1 item 5'}
+_NOT_PORTED = {'KaldiMFCC': 'features/kaldi.py, ROADMAP Queue 1 item 5c'}
 
 
 def fe_from_config(config: dict) -> STFTFeatures:

@@ -414,7 +414,7 @@ class Model(nn.Module, Configurable):
                 raise NotImplementedError(
                     'waveform feature extractors (KaldiMFCC, '
                     'features/kaldi.py) are not ported yet: ROADMAP Queue 1 '
-                    'item 5')
+                    'item 5c')
             ex['Observation'] = self.fe.stft(self._tensor(ex['observation']))
         else:
             ex['Observation'] = self._tensor(ex['Observation'],
