@@ -118,7 +118,27 @@ Phases, each of which must pass:
     then the MVDR on 7 (``eg.trainer.model.reader.num_channels=7
     beamform=true``); each writes ``metrics.json`` with a calibration
     without error, finite mean DER and SI-SDR, segments on every recording
-    and WAVs from the native writer.
+    and WAVs from the native writer;
+21. recipe simulated: the simulated-corpus recipe
+    (``tssep_tpu_torch.exp.run_simulated.main_multichannel``, in this
+    process) at the R5W widths (units/projs 64, F 513, 'gate' aux 513, 6
+    channels, reverb taps 2, a pool of 16 voices, batch 8, 2 trials,
+    ``explicit_vad``, ``vad_weight`` 0.3, a vocabulary of 8 words; the
+    stages in bf16, the CTC recognizer in f32), its depth cut to 32
+    training meetings, 2 eval recordings, 40 TS-VAD and 20 TS-SEP
+    iterations and 60 CTC steps, in a temporary work dir: the shards the
+    native writer wrote, read back with their example counts; the CTC
+    loss finite and falling; both stages' losses finite; the fully fused
+    pair launched in the CTC training and in each stage, its forward in
+    each of the five evaluations, which return their recordings, a finite
+    DER, segments and a cpWER, and an SI-SDR or the reasons it has none;
+    the simulation's seconds, ms a CTC step, ms a TS-VAD and a TS-SEP
+    step and iteration (12 steps of 8 meetings: the Experiment's virtual
+    minibatch), each evaluation's seconds a recording and the
+    transcription's share, the launches and the peak memory; then the
+    fully fused pair against its plain versions at each (rows, F, H) the
+    phase launched (bf16, H 64, to ``CLUSTER_TOL``; f32, H 48, to the f32
+    gates), and at the CTC's training and transcription shapes.
 
 Before them a ``cond_fuse``, a ``spill`` and a ``bidi=False`` line sum up
 the conditioned, the spill and the one-direction pair in bfloat16 at batch
@@ -142,6 +162,7 @@ import dataclasses  # noqa: E402
 import json        # noqa: E402
 import math        # noqa: E402
 import os          # noqa: E402
+import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile    # noqa: E402
 import time        # noqa: E402
@@ -2280,6 +2301,321 @@ def phase_eval_cli(storage):
                 'eg.trainer.model.reader.num_channels=7', 'beamform=true')}
 
 
+#: ``recipe simulated``: ``tssep_tpu_torch.exp.run_simulated
+#: .main_multichannel`` at the R5W widths (units/projs 64, Log1pMaxNorm F
+#: 513, 'gate' aux 513, 6 channels, reverb taps 2, a pool of 16 voices,
+#: batch 8, 2 trials, ``explicit_vad``, ``vad_weight`` 0.3; the stages in
+#: bf16, the CTC recognizer in f32) with a vocabulary of 8 words, its depth
+#: cut: these meetings, iterations and CTC steps (R5W: 512 meetings, 8 eval
+#: recordings, 1600 / 800 iterations, 900 steps).
+RECIPE_SIM = dict(vocabulary=8, strict_comparison=False, train_examples=32,
+                  eval_examples=2, tsvad_iters=40, tssep_iters=20,
+                  ctc_steps=60)
+RECIPE_SIM_KERNELS = ('blstm_fullfused_fwd', 'blstm_fullfused_bwd')
+#: The recipe's evaluations, in the order ``main`` runs them.
+RECIPE_SIM_EVALS = ('tsvad', 'tssep', 'joint masking', 'joint mvdr',
+                    'joint mvdr postmask')
+#: The CTC recognizer's layer (F 40 x 3 stacked, H 48) in f32 at a
+#: training batch (16 rows, T 61: 1.8 s at shift 160, frames stacked by 3)
+#: and at one transcribed stream (1 row), checked beside the shapes the
+#: phase records.
+CTC_CASES = [('recipe sim ctc step', RECIPE_SIM_KERNELS, 16, 61, 120, 48),
+             ('recipe sim ctc transcribe', RECIPE_SIM_KERNELS[:1], 1, 61,
+              120, 48)]
+
+
+class _Shapes:
+    """Records the (rows, T, F, H, dtype) of each fully fused launch that
+    ``nn/rnnp.py`` makes, by stage, passing every call on to the wrapper
+    (which counts it)."""
+
+    def __init__(self):
+        self.stage = None
+        self.seen = {}
+
+    def wrap(self, name):
+        fn = getattr(kb, name)
+
+        def record(x, w_ih_t, w_hh_t, *args, **kwargs):
+            key = (name, x.shape[0], x.shape[1], x.shape[2],
+                   w_hh_t.shape[1], x.dtype)
+            self.seen.setdefault(key, self.stage)
+            return fn(x, w_ih_t, w_hh_t, *args, **kwargs)
+        return mock.patch.object(rnnp, name, record)
+
+
+def _stage_counts(stages, label, fn, shapes):
+    """``fn`` wrapped: the launch counts set to 0 just before each call and
+    read just after, with its seconds, into ``stages[label]`` (a list, one
+    entry a call)."""
+    def run(*args, **kwargs):
+        shapes.stage = label
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        stages.setdefault(label, []).append(
+            {'start': t0, 'seconds': time.perf_counter() - t0,
+             'launches': _launches()})
+        return out
+    return run
+
+
+def phase_recipe_simulated(rows):
+    """The simulated-corpus recipe through its launcher's function on the
+    card (``RECIPE_SIM``); then the fully fused pair against its plain
+    versions at each (rows, F, H) the phase launched, at the longest T, and
+    at ``CTC_CASES``, into ``rows``."""
+    from tssep_tpu_torch.data.shard_corpus import ShardCorpusReader
+    from tssep_tpu_torch.eval import ctc
+    from tssep_tpu_torch.exp import run_simulated
+    from tssep_tpu_torch.runtime.native import ShardReader, ShardWriter
+    from tssep_tpu_torch.train.experiment import Experiment
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.pop('TSSEP_COMPUTE_DTYPE', None)
+    stages, shapes, written, step_times, egs = {}, _Shapes(), [], [], {}
+    asr = []
+    ctc_steps, transcribe_s = [], []
+    loss_fn, transcribe = ctc.CTCRecognizer.loss_fn, ctc.CTCRecognizer.__call__
+    add_example = ShardWriter.add_example
+    evaluate_fn = eval_cli.evaluate
+
+    def timed_loss(self, *args):
+        torch.cuda.synchronize()
+        out = loss_fn(self, *args)
+        ctc_steps.append((time.perf_counter(), out.detach()))
+        return out
+
+    def timed_transcribe(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = transcribe(self, *args, **kwargs)
+        transcribe_s.append(time.perf_counter() - t0)
+        return out
+
+    def counted_add(self, example_id, arrays):
+        written.append(Path(self.path).name)
+        return add_example(self, example_id, arrays)
+
+    train_fn, train_step = Experiment.train, Trainer.train_step
+    train_on_fn = ctc.CTCRecognizer.train_on.__func__
+
+    def train_on(cls, *args, **kwargs):
+        asr.append(_stage_counts(stages, 'ctc', train_on_fn, shapes)(
+            cls, *args, **kwargs))
+        return asr[-1]
+
+    def train(eg):
+        label = Path(eg.trainer.storage_dir).name         # tsvad, tssep
+        egs[label] = eg
+        return _stage_counts(stages, label, train_fn, shapes)(eg)
+
+    def timed_step(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        step_times.append((t, 1e3 * (time.perf_counter() - t)))
+        return out
+
+    evals = iter(RECIPE_SIM_EVALS)
+
+    def evaluate(*args, **kwargs):
+        label = f'eval {next(evals)}'
+        before = len(transcribe_s)
+        out = _stage_counts(stages, label, evaluate_fn, shapes)(
+            *args, **kwargs)
+        stages[label][-1]['metrics'] = out
+        stages[label][-1]['transcribe_s'] = sum(transcribe_s[before:])
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix='tssep_recipe_sim_') as tmp, \
+            shapes.wrap('blstm_fullfused_fwd'), \
+            shapes.wrap('blstm_fullfused_bwd'), \
+            mock.patch.object(ctc.CTCRecognizer, 'loss_fn', timed_loss), \
+            mock.patch.object(ctc.CTCRecognizer, '__call__',
+                              timed_transcribe), \
+            mock.patch.object(ShardWriter, 'add_example', counted_add), \
+            mock.patch.object(ctc.CTCRecognizer, 'train_on',
+                              classmethod(train_on)), \
+            mock.patch.object(Experiment, 'train', train), \
+            mock.patch.object(eval_cli, 'evaluate', evaluate), \
+            mock.patch.object(Trainer, 'train_step', timed_step):
+        work = Path(tmp) / 'mc'
+        t0 = time.perf_counter()
+        run_simulated.main_multichannel(work, **RECIPE_SIM)
+        seconds = time.perf_counter() - t0
+        counts = {split: len(ShardReader(work / f'{split}.shard').keys())
+                  for split in ('train', 'validate', 'eval')}
+        metrics = {stage: _metrics(work / stage) for stage in ('tsvad',
+                                                               'tssep')}
+        # the trained recognizer on its own: each eval recording's early
+        # images (the reference streams), one call a stream
+        shapes.stage = 'ctc transcribe'
+        reader = ShardCorpusReader(eval_shard=str(work / 'eval.shard'))
+        streams = [sig for ex in reader('eval', load_keys=(
+            'speaker_reverberation_early_ch0',))
+            for sig in ex['audio_data']['speaker_reverberation_early_ch0']]
+        _reset_launches()
+        before = len(transcribe_s)
+        hypotheses = [asr[0](sig) for sig in streams]
+        oracle = {'streams': len(streams),
+                  'ms_per_stream': [1e3 * t for t in transcribe_s[before:]],
+                  'words': sum(len(h.split()) for h in hypotheses),
+                  'launches': _launches()}
+        check(oracle['launches'] == _expect({'blstm_fullfused_fwd': 1},
+                                            len(streams)),
+              f'recipe simulated: a forward a stream, {oracle}')
+        shapes.stage, profiled = 'profiled step', {}
+        for name, eg in egs.items():
+            batch = next(iter(eg.trainer.model.prepare_train_dataset(
+                prefetch=False, batch_size=eg.train_batchsize)))
+            profiled[name] = _profiled_step(f'recipe simulated {name}',
+                                            eg.trainer, batch)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    # the corpora: the native writer's examples, read back by the reader
+    want = {'train': RECIPE_SIM['train_examples'],
+            'validate': max(RECIPE_SIM['eval_examples'], 2),
+            'eval': RECIPE_SIM['eval_examples']}
+    fields = 5                    # observation, early images, vad, aux, words
+    check({split: written.count(f'{split}.shard') for split in want}
+          == want and all(n == fields * want[s] for s, n in counts.items()),
+          f'recipe simulated: shards {counts} entries, written {written}')
+    # the CTC recognizer
+    losses = [float(loss) for _, loss in ctc_steps]
+    check(len(losses) == RECIPE_SIM['ctc_steps']
+          and all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f'recipe simulated: CTC losses finite and falling, {losses}')
+    step_ms = [1e3 * (b - a) for (a, _), (b, _) in zip(ctc_steps,
+                                                       ctc_steps[1:])]
+    # the stages, in order: TS-VAD, then TS-SEP
+    stage_names = {'ctc': stages['ctc'][0]}
+    for name in ('tsvad', 'tssep'):
+        (entry,) = stages[name]
+        stage_names[name] = entry
+        m = metrics[name]
+        vals = ([r['train/loss'] for r in m if 'train/loss' in r]
+                + [r['validation/mean_loss'] for r in m
+                   if 'validation/mean_loss' in r])
+        check(vals and all(map(math.isfinite, vals)),
+              f'recipe simulated {name}: finite losses {vals}')
+        entry['losses'] = vals
+    for name, entry in stage_names.items():
+        launches = entry['launches']
+        check(all(launches[k] > 0 for k in RECIPE_SIM_KERNELS)
+              and not any(v for k, v in launches.items()
+                          if k not in RECIPE_SIM_KERNELS),
+              f'recipe simulated {name}: launches {launches}')
+    # each stage's training steps: the last of its timed steps (its
+    # pre-flight test run comes first); an iteration accumulates the
+    # trainer's virtual minibatch of steps (12, the Experiment's default)
+    iters = {'tsvad': RECIPE_SIM['tsvad_iters'],
+             'tssep': RECIPE_SIM['tssep_iters']}
+    stage_steps = {}
+    for name in iters:
+        entry = stage_names[name]
+        vmb = egs[name].trainer.virtual_minibatch_size
+        inside = [ms for t, ms in step_times
+                  if entry['start'] <= t <= entry['start'] + entry['seconds']]
+        n = iters[name] * vmb
+        check(len(inside) >= n,
+              f'recipe simulated {name}: {len(inside)} timed steps')
+        steps = inside[-n:]
+        stage_steps[name] = {
+            'steps_an_iteration': vmb,
+            'ms_per_step': {'median': statistics.median(steps),
+                            'min': min(steps), 'max': max(steps)},
+            'ms_per_iteration': [sum(steps[i:i + vmb])
+                                 for i in range(0, n, vmb)]}
+    # storage: the stages in bf16 at H 64, the CTC recognizer in f32 at H 48
+    check(all((dtype, H) == ((F32, 48) if stage.startswith('ctc')
+                             else (BF16, 64))
+              for (_, _, _, _, H, dtype), stage in shapes.seen.items()),
+          f'recipe simulated: storage and widths by stage {shapes.seen}')
+    # the evaluations
+    results = {}
+    for name in RECIPE_SIM_EVALS:
+        (entry,) = stages[f'eval {name}']
+        summary = entry['metrics']['summary']
+        records = entry['metrics']['per_recording']
+        launches = entry['launches']
+        check(summary['num_recordings'] == RECIPE_SIM['eval_examples']
+              and math.isfinite(summary.get('mean_der', math.nan))
+              and all('num_segments' in r for r in records)
+              and (name == 'tsvad' or 'mean_cp_wer' in summary),
+              f'recipe simulated eval {name}: {summary}')
+        check(math.isfinite(summary.get('mean_si_sdr', math.nan))
+              or name == 'tsvad' or summary.get('degenerate_reasons'),
+              f'recipe simulated eval {name}: SI-SDR or a reason, {summary}')
+        check(launches['blstm_fullfused_fwd'] > 0
+              and not any(v for k, v in launches.items()
+                          if k != 'blstm_fullfused_fwd'),
+              f'recipe simulated eval {name}: launches {launches}')
+        n = summary['num_recordings']
+        results[name] = {
+            'summary': summary, 'launches': launches,
+            's_per_recording': entry['seconds'] / n,
+            'transcribe_s_per_recording': entry['transcribe_s'] / n,
+            'transcribe_share': entry['transcribe_s'] / entry['seconds'],
+            'stage_ms': [r['stage_ms'] for r in records]}
+    out = {
+        'seconds': seconds, 'peak_mib': peak,
+        'simulate_s': stage_names['ctc']['start'] - t0,
+        'ctc': {'seconds': stage_names['ctc']['seconds'],
+                'ms_per_step': step_ms,
+                'corpus_s': ctc_steps[0][0] - stage_names['ctc']['start'],
+                'transcribe_alone': oracle,
+                'losses': losses[::10] + losses[-1:],
+                'launches': stage_names['ctc']['launches']},
+        **{name: {'seconds': stage_names[name]['seconds'],
+                  **stage_steps[name], 'profiled_step': profiled[name],
+                  'launches': stage_names[name]['launches']}
+           for name in ('tsvad', 'tssep')},
+        'evals': results,
+        'shards': counts,
+        'shapes': [[name, *key[:4], str(key[4]).split('.')[-1], stage]
+                   for (name, *key), stage in shapes.seen.items()],
+    }
+    log(f'recipe simulated: {json.dumps(out)}')
+    _recipe_sim_kernel_checks(rows, shapes.seen)
+    return out
+
+
+def _recipe_sim_kernel_checks(rows, seen):
+    """The fully fused pair against its plain versions at each (rows, F,
+    H, storage) the phase launched, at the longest T it launched there: in
+    bf16 (the stages, H 64) to ``CLUSTER_TOL``, in f32 (the CTC, H 48) to
+    the f32 gates; and at ``CTC_CASES``."""
+    gen = torch.Generator(device='cuda').manual_seed(16)
+    longest = {}
+    for (name, B, T, F, H, dtype), stage in seen.items():
+        key = (name, B, F, H, dtype)
+        if T > longest.get(key, (0, None))[0]:
+            longest[key] = (T, stage)
+    cases = sorted(longest.items(), key=lambda kv: (kv[0][0], str(kv[0][4]),
+                                                    kv[0][1], kv[0][2]))
+    for (name, B, F, H, dtype), (T, stage) in cases:
+        case_fn = (fullfused_case if name == 'blstm_fullfused_fwd'
+                   else fullfused_bwd_case)
+        with torch.set_grad_enabled(name.endswith('_bwd')):
+            rows[name].append(case_fn(f'recipe sim {stage}', B, T, F, H,
+                                      dtype, gen))
+        log(json.dumps(rows[name][-1]))
+        torch.cuda.empty_cache()
+    for label, names, B, T, F, H in CTC_CASES:
+        for name in names:
+            if longest.get((name, B, F, H, F32), (0,))[0] >= T:
+                continue
+            case_fn = (fullfused_case if name == 'blstm_fullfused_fwd'
+                       else fullfused_bwd_case)
+            with torch.set_grad_enabled(name.endswith('_bwd')):
+                rows[name].append(case_fn(label, B, T, F, H, F32, gen))
+            log(json.dumps(rows[name][-1]))
+
+
 def pair_summary(switch, pair, rows, serving, training):
     """Logs a redesigned pair in bfloat16 at batch 16: each kernel's
     numbers, summed over its calls on a served request (forward) or a
@@ -2417,10 +2753,13 @@ def main():
         log(f'-- eval flagship done at {time.perf_counter() - t0:.1f} s')
         evaluated_cli = phase_eval_cli(Path(tmp) / 'warm')
         log(f'-- eval cli done at {time.perf_counter() - t0:.1f} s')
+    recipe_sim = phase_recipe_simulated(rows)
+    log(f'-- recipe simulated done at {time.perf_counter() - t0:.1f} s')
     log(json.dumps({'serving cond_fuse': serving_cond, 'training': training,
                     **switched, 'recipe cli': recipe,
                     'recipe cli flagship': recipe_flagship,
-                    'eval flagship': evaluated, 'eval cli': evaluated_cli}))
+                    'eval flagship': evaluated, 'eval cli': evaluated_cli,
+                    'recipe simulated': recipe_sim}))
     pair_summary('cond_fuse', ('blstm_fullfused_cond_fwd',
                                'blstm_fullfused_cond_bwd'), rows,
                  serving_cond, switched['train cond_fuse'])
@@ -2441,7 +2780,13 @@ def main():
         **{f'eval flagship {name}': evaluated[name]['launches']
            for name in ('beamform', 'masking')},
         **{f'eval cli {name}': evaluated_cli[name]['launches']
-           for name in ('masking', 'beamform')}})))
+           for name in ('masking', 'beamform')},
+        **{f'recipe simulated {name}': recipe_sim[name]['launches']
+           for name in ('ctc', 'tsvad', 'tssep')},
+        'recipe simulated transcribe':
+            recipe_sim['ctc']['transcribe_alone']['launches'],
+        **{f'recipe simulated eval {name}': r['launches']
+           for name, r in recipe_sim['evals'].items()}})))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

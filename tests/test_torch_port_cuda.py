@@ -54,9 +54,15 @@ def _uniform(gen, shape, bound, dtype):
             * bound).to(dtype)
 
 
+#: The fully fused pair's shapes of the tests below; the last two are the
+#: simulated recipe's CTC recognizer (F 40 x 3, H 48: a training batch of 16
+#: rows and one transcribed stream, short T), which runs in f32.
+FULLFUSED_CASES = [(13, 23, 12, 16), (3, 1, 40, 300), (70, 9, 513, 300),
+                   (16, 31, 553, 300), (16, 61, 120, 48), (1, 23, 120, 48)]
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('B,T,F,H', [(13, 23, 12, 16), (3, 1, 40, 300),
-                                     (70, 9, 513, 300), (16, 31, 553, 300)])
+@pytest.mark.parametrize('B,T,F,H', FULLFUSED_CASES)
 def test_fullfused_kernel_matches_plain(gen, dtype, B, T, F, H):
     x = torch.randn(B, T, F, generator=gen, device='cuda').to(dtype)
     w_ih_t = _uniform(gen, (2, F, 4 * H), H ** -0.5, dtype)
@@ -117,8 +123,7 @@ def _fullfused_bwd_inputs(gen, dtype, B, T, F, H):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('B,T,F,H', [(13, 23, 12, 16), (3, 1, 40, 300),
-                                     (70, 9, 513, 300), (16, 31, 553, 300)])
+@pytest.mark.parametrize('B,T,F,H', FULLFUSED_CASES)
 def test_fullfused_bwd_kernel_matches_plain(gen, dtype, B, T, F, H):
     args = _fullfused_bwd_inputs(gen, dtype, B, T, F, H)
     before = kb.blstm_fullfused_bwd.launches
@@ -301,7 +306,12 @@ CLUSTER_CASES = [(1, 1, 12, 16), (13, 2, 513, 37), (13, 316, 12, 300),
                  (16, 316, 513, 300), (128, 316, 513, 300),
                  (300, 9, 2048, 512), (300, 2, 320, 300),
                  (16, 316, 553, 300), (256, 316, 513, 300),
-                 (256, 316, 320, 300)]
+                 (256, 316, 320, 300),
+                 # the simulated recipe at H 64: pre_net (8 rows, F 513),
+                 # the stacked birnn2 (16 rows, F 8 x 64), birnn0 and birnn1
+                 # at 2 trials (128 rows, F 513 and 64)
+                 (8, 316, 513, 64), (16, 316, 512, 64), (128, 316, 513, 64),
+                 (128, 316, 64, 64)]
 CLUSTER_FWD_ATOL = 1.6e-2
 CLUSTER_BWD_RTOL = 5e-3
 

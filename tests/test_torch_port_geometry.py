@@ -180,6 +180,43 @@ def test_geometry_at_eval_shapes():
                                          1)
 
 
+def test_geometry_at_simulated_recipe_shapes():
+    """The simulated-corpus recipe's layers at H 64 (bf16): pre_net on 8
+    rows at F 513, the stacked birnn2 on 16 rows at F 8 x 64 = 512, birnn0
+    and birnn1 on 128 rows at F 513 and 64: clusters of 8 CTAs of 8 units
+    (two m-tiles), 128 threads, one wave; at 128 rows 24-row tiles on the
+    card (12 clusters), 16-row ones without its answer. The CTC
+    recognizer's layer at H 48 (F 120, 16 rows and 1) has 6 active CTAs
+    of 8: the bf16 route's plan at that width (in f32, the recognizer's
+    storage, the first design runs)."""
+    def g(kind, rows, F, H, slots):
+        geo = kb.cluster_geometry(kind, rows, F, H, slots=slots)
+        _check(geo, rows, F, H)
+        return (geo.cluster, geo.units, geo.active, geo.row_tile, geo.tiles,
+                geo.threads, geo.chunk, geo.k_block, geo.clusters, geo.waves)
+
+    for slots in (None, _h100_slots):
+        assert g('fwd', 8, 513, 64, slots) == (8, 8, 8, 8, 1, 128, 4, 528,
+                                               2, 1)
+        assert g('fwd', 16, 512, 64, slots) == (8, 8, 8, 8, 2, 128, 4, 512,
+                                                4, 1)
+        assert g('bwd', 16, 512, 64, slots) == (8, 8, 8, 8, 2, 128, 1, 0, 4,
+                                                1)
+        assert g('fwd', 16, 120, 48, slots) == (8, 8, 6, 8, 2, 128, 4, 128,
+                                                4, 1)
+        assert g('bwd', 16, 120, 48, slots) == (8, 8, 6, 8, 2, 96, 1, 0, 4,
+                                                1)
+        assert g('fwd', 1, 120, 48, slots) == (8, 8, 6, 8, 1, 128, 4, 128,
+                                               2, 1)
+    for F, k_block in ((513, 528), (64, 64)):
+        assert g('fwd', 128, F, 64, _h100_slots) == (8, 8, 8, 24, 6, 128, 1,
+                                                     k_block, 12, 1)
+        assert g('fwd', 128, F, 64, None) == (8, 8, 8, 16, 8, 128, 2,
+                                              k_block, 16, 1)
+        assert g('bwd', 128, F, 64, _h100_slots) == (8, 8, 8, 24, 6, 128, 1,
+                                                     0, 12, 1)
+
+
 def _unfragment(frags):
     """(..., M/16, K/16, 32, 8) -> (..., M, K), reading each lane's values
     by mma.m16n8k16's A layout as PTX states it: value i of lane 4 g + t is

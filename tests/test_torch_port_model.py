@@ -232,6 +232,11 @@ def test_port_imports_no_jax():
             importlib.import_module(name)
         for name in ('tssep_tpu_torch.data.device_sim',
                      'tssep_tpu_torch.data.dummy',
+                     'tssep_tpu_torch.data.import_corpus',
+                     'tssep_tpu_torch.data.shard_corpus',
+                     'tssep_tpu_torch.data.simulate',
+                     'tssep_tpu_torch.eval.ctc',
+                     'tssep_tpu_torch.exp.run_simulated',
                      'tssep_tpu_torch.signal.vad',
                      'tssep_tpu_torch.tasks.losses',
                      'tssep_tpu_torch.train.optimizer',

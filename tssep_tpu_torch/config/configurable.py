@@ -65,10 +65,6 @@ _PORT_PACKAGE = 'tssep_tpu_torch.'
 NOT_PORTED = {
     'tssep_tpu_torch.features.kaldi': 'ROADMAP Queue 1 item 5c',
     'tssep_tpu_torch.eval.streaming': 'ROADMAP Queue 1 item 5c',
-    'tssep_tpu_torch.eval.ctc': 'ROADMAP Queue 1 item 5b',
-    'tssep_tpu_torch.data.simulate': 'ROADMAP Queue 1 item 5b',
-    'tssep_tpu_torch.data.shard_corpus': 'ROADMAP Queue 1 item 5b',
-    'tssep_tpu_torch.data.import_corpus': 'ROADMAP Queue 1 item 5b',
     'tssep_tpu_torch.dist.': 'ROADMAP Queue 1 item 4',
 }
 

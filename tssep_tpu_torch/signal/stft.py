@@ -4,7 +4,11 @@ Port of ``tssep_tpu/signal/stft.py``: periodic analysis windows, ``fading``
 (zero padding of ``window_length - shift`` samples on both sides), ``pad`` (the
 last partial frame is zero-padded), synthesis with the biorthogonal window and
 overlap-add. The JAX package computes the DFT as a matrix product for the TPU;
-here ``torch.fft`` does it, as XLA did it outside any Pallas kernel.
+here ``torch.fft`` does it, as XLA did it outside any Pallas kernel. A numpy
+array takes the JAX package's host path instead (``_stft_np``: strided
+frames and ``np.fft.rfft``, in the array's precision), so host features such
+as the simulator's speaker embeddings and the CTC recognizer's log-mels are
+JAX's bit for bit.
 
 Frame count (reference golden: 10_000 samples, size 1024, shift 256,
 fading=True -> 43 frames):
@@ -114,17 +118,34 @@ class STFT:
     def __call__(self, signal):
         return self.stft(signal)
 
-    def stft(self, signal: torch.Tensor) -> torch.Tensor:
-        """(..., samples) real -> (..., frames, size // 2 + 1) complex."""
-        pad = self.fading_pad
-        frames = self.num_frames(signal.shape[-1])
-        padded_len = max(signal.shape[-1] + 2 * pad,
-                         (frames - 1) * self.shift + self.window_length)
-        x = F.pad(signal, (pad, padded_len - signal.shape[-1] - pad))
+    def stft(self, signal):
+        """(..., samples) real -> (..., frames, size // 2 + 1) complex: a
+        tensor on its device, a numpy array on the host."""
+        if isinstance(signal, np.ndarray):
+            return self._stft_np(signal)
+        pad, _, _, end_pad = self._frame_layout(signal.shape[-1])
+        x = F.pad(signal, (pad, pad + end_pad))
         segs = x.unfold(-1, self.window_length, self.shift)
         w = torch.as_tensor(self.analysis_window, dtype=segs.dtype,
                             device=segs.device)
         return torch.fft.rfft(segs * w, n=self.size, dim=-1)
+
+    def _frame_layout(self, num_samples):
+        pad = self.fading_pad
+        total = num_samples + 2 * pad
+        frames = self.num_frames(num_samples)
+        padded_len = max(total, (frames - 1) * self.shift + self.window_length)
+        return pad, frames, padded_len, padded_len - total
+
+    def _stft_np(self, signal):
+        pad, frames, _, end_pad = self._frame_layout(signal.shape[-1])
+        width = [(0, 0)] * (signal.ndim - 1) + [(pad, pad + end_pad)]
+        x = np.pad(signal, width, mode='constant')
+        stride = x.strides[-1]
+        shape = x.shape[:-1] + (frames, self.window_length)
+        strides = x.strides[:-1] + (self.shift * stride, stride)
+        segs = np.lib.stride_tricks.as_strided(x, shape=shape, strides=strides)
+        return np.fft.rfft(segs * self.analysis_window, n=self.size, axis=-1)
 
     def istft(self, stft_signal, num_samples: int | None = None):
         """Inverse of :meth:`stft`. ``stft_signal`` is a complex tensor or a
