@@ -138,7 +138,24 @@ Phases, each of which must pass:
     transcription's share, the launches and the peak memory; then the
     fully fused pair against its plain versions at each (rows, F, H) the
     phase launched (bf16, H 64, to ``CLUSTER_TOL``; f32, H 48, to the f32
-    gates), and at the CTC's training and transcription shapes.
+    gates), and at the CTC's training and transcription shapes;
+22. serve streaming: ``tssep_tpu_torch.eval.streaming.StreamingSession`` on
+    the flagship (bf16, bf16 head) over one 60 s stream at 16 kHz fed in
+    blocks of 4,000 samples, chunks of 50 frames and 12 of lookahead, audio
+    emitted: ms a chunk (p50, p95, max), the real-time factor, the
+    ``lstm_fwd`` launches (3 a layer and block from a carried state, 12 a
+    block; nothing else), the peak memory; the first 10 s against the plain
+    versions, a covering lookahead in f32 against ``Model.forward`` on the
+    same causal frames, and the Kaldi-input TS-VAD model
+    (``tests/test_kaldi.py:113-141``, its MFCC made on the card) served
+    against the plain versions in bf16 and f32. The kernels phase holds
+    ``lstm_fwd`` from a nonzero carried state against its plain version at
+    the session's shapes (rows 1 and 8, T 12, 50 and 62), in f32 and bf16,
+    beside cuDNN's LSTM from the same state.
+
+The flagship's phases run it as ``bench.py`` does: in bfloat16 with the
+bfloat16 head (``TSSEP_HEAD_BF16=1``), in float32 with the float32 head;
+each phase's line names the head.
 
 Before them a ``cond_fuse``, a ``spill`` and a ``bidi=False`` line sum up
 the conditioned, the spill and the one-direction pair in bfloat16 at batch
@@ -178,6 +195,7 @@ from tssep_tpu_torch.data.dummy import (  # noqa: E402
     dummy_example, staircase_vad, wiener_like_mask)
 from tssep_tpu_torch.eval import driver as eval_driver  # noqa: E402
 from tssep_tpu_torch.eval import run as eval_cli  # noqa: E402
+from tssep_tpu_torch.eval import streaming  # noqa: E402
 from tssep_tpu_torch.eval.classic_bf import ClassicBF  # noqa: E402
 from tssep_tpu_torch.eval.metrics import si_sdr  # noqa: E402
 from tssep_tpu_torch.eval.wpe import WPE  # noqa: E402
@@ -427,6 +445,19 @@ LSTM_CASES = [(label, B, T, H, rev) for label, B, T, H in (
     ('fullfuse=False birnn0', 16 * SPEAKERS, FRAMES, HIDDEN, True)]
 LSTM_BWD_CASES = [(label.replace('serve', 'train'), *dims)
                   for label, *dims in LSTM_CASES]
+#: ``lstm_fwd``'s calls in ``serve streaming`` (the flagship, H 300): a block
+#: launches, for each of its four layers, the chunk forward (T 50) from the
+#: carried state, the lookahead forward (T 12) from the state committed at
+#: the chunk's end and the reverse over the block (T 62); pre_net and the
+#: stacked birnn2 on 1 row, birnn0 and birnn1 on the 8 speakers' rows. Each
+#: case starts from a nonzero state (``lstm_case``), the reverse too, where
+#: the session starts it from zeros (the same work).
+STREAM_CHUNK, STREAM_LOOKAHEAD = 50, 12
+STREAM_CASES = [(f'stream {part}', B, T, HIDDEN, rev) for B in (1, SPEAKERS)
+                for part, T, rev in (
+                    ('chunk', STREAM_CHUNK, False),
+                    ('lookahead', STREAM_LOOKAHEAD, False),
+                    ('reverse', STREAM_CHUNK + STREAM_LOOKAHEAD, True))]
 
 
 
@@ -643,26 +674,41 @@ def _spill_bits(got, x, w_ih_t, w_hh_t, bias):
 
 
 def lstm_case(label, B, T, H, reverse, dtype, gen):
+    """A call of ``lstm_fwd``; a 'stream' case starts the walk from a
+    nonzero carried state (h0 in [-1, 1], c0 in [-2, 2]), as the streaming
+    session's chunk and lookahead launches do."""
     size = torch.finfo(dtype).bits // 8
     xg = torch.randn(B, T, 4 * H, generator=gen, device='cuda').to(dtype)
     w_hh_t = _uniform(gen, (H, 4 * H), 1 / H ** 0.5, dtype)
-    got = kb.lstm_fwd(xg, w_hh_t, reverse=reverse, with_cell=True)
-    want = kb.lstm_fwd_plain(xg, w_hh_t, reverse=reverse, with_cell=True)
+    state = {}
+    if label.startswith('stream'):
+        state = {'h0': _uniform(gen, (B, H), 1.0, dtype),
+                 'c0': _uniform(gen, (B, H), 2.0, dtype)}
+    got = kb.lstm_fwd(xg, w_hh_t, reverse=reverse, with_cell=True, **state)
+    want = kb.lstm_fwd_plain(xg, w_hh_t, reverse=reverse, with_cell=True,
+                             **state)
     name = (f'lstm_fwd {label} B={B} T={T} H={H} '
-            f'{"reverse" if reverse else "forward"}')
+            f'{"reverse" if reverse else "forward"}'
+            f'{" from a state" if state else ""}')
     library = _selection_lstm(name, xg, w_hh_t[None], want[0], dtype,
-                              reverse=reverse)
+                              reverse=reverse, **state)
     row = _case(
-        name, dtype, lambda: kb.lstm_fwd(xg, w_hh_t, reverse=reverse),
-        lambda: kb.lstm_fwd_plain(xg, w_hh_t, reverse=reverse),
+        name, dtype, lambda: kb.lstm_fwd(xg, w_hh_t, reverse=reverse,
+                                         **state),
+        lambda: kb.lstm_fwd_plain(xg, w_hh_t, reverse=reverse, **state),
         got, want, flops=2 * B * T * H * 4 * H,
-        nbytes=size * (B * T * 4 * H + H * 4 * H + B * T * H),
+        nbytes=size * (B * T * 4 * H + H * 4 * H + B * T * H
+                       + (2 * B * H if state else 0)),
         library=library.forward, library_label=SELECTION_LIBRARY,
         tol=CLUSTER_TOL['lstm_fwd'] if dtype == BF16 else None)
     row['design'] = DESIGNS['lstm_fwd'][row['dtype']]
+    if state:
+        row['from_state'] = True
     if dtype == BF16:
+        first_state = tuple(state.values()) or None
         row['first_design_ms'] = cuda_ms(
-            lambda: kb._lstm_fwd_first(xg, w_hh_t, reverse, False))
+            lambda: kb._lstm_fwd_first(xg, w_hh_t, reverse, False,
+                                       first_state))
         row['geometry'] = dataclasses.asdict(kb._geometry(
             'fwd_xg', B, 4 * H, H, xg.device, 'uni', directions=1))
     return row
@@ -679,14 +725,16 @@ SELECTION_ATOL = {F32: 1e-4, BF16: 5e-2}
 
 class _Selection:
     """cuDNN's LSTM set up to compute a gate-input kernel's function: the
-    call (``forward``) and its backward from a kept graph (``backward``,
-    made on first use), on the inputs the kernel takes."""
+    call (``forward``, from the kernel's carried state where it has one) and
+    its backward from a kept graph (``backward``, made on first use), on
+    the inputs the kernel takes."""
 
-    def __init__(self, lstm, xg_in, h_out):
+    def __init__(self, lstm, xg_in, h_out, state=None):
         self.lstm, self.xg_in, self.h_out = lstm, xg_in, h_out
+        self.state = state
 
     def forward(self):
-        return self.lstm(self.xg_in)
+        return self.lstm(self.xg_in, self.state)
 
     def backward(self, dh):
         xg_leaf = self.xg_in.detach().requires_grad_()
@@ -698,14 +746,15 @@ class _Selection:
 
 
 def _selection_lstm(name, xg, w_hh_t, h_ref, dtype, reverse=False,
-                    ref='the plain version'):
+                    ref='the plain version', h0=None, c0=None):
     """cuDNN's ``torch.nn.LSTM`` with input width G = 4H n (n directions),
     ``weight_ih`` of direction d the selection [0 .. I_4H .. 0] of xg's
     columns [4H d, 4H (d + 1)), zero biases and ``weight_hh`` = w_hh_t[d]^T:
-    h = the gate-input kernel's h on xg. One direction with ``reverse``
-    runs on the time-flipped xg (flipped once, outside the timed call).
-    Checks its h against ``h_ref``, the plain version's (or, where ``ref``
-    says so, the kernel's); returns the :class:`_Selection`."""
+    h = the gate-input kernel's h on xg (one direction from ``h0``, ``c0``
+    where given). One direction with ``reverse`` runs on the time-flipped
+    xg (flipped once, outside the timed call). Checks its h against
+    ``h_ref``, the plain version's (or, where ``ref`` says so, the
+    kernel's); returns the :class:`_Selection`."""
     n, H = w_hh_t.shape[0], w_hh_t.shape[1]
     G = 4 * H * n
     lstm = torch.nn.LSTM(G, H, bidirectional=n == 2, batch_first=True,
@@ -722,14 +771,16 @@ def _selection_lstm(name, xg, w_hh_t, h_ref, dtype, reverse=False,
     lstm.flatten_parameters()
     xg_in = xg.flip(1).contiguous() if reverse else xg.contiguous()
     flip = (lambda t: t.flip(1)) if reverse else (lambda t: t)
+    state = None if h0 is None else (h0[None].contiguous(),
+                                     c0[None].contiguous())
     with torch.no_grad():
-        h = flip(lstm(xg_in)[0])
+        h = flip(lstm(xg_in, state)[0])
     err = (h.float() - h_ref.float()).abs().max().item()
     log(f'{name}: {SELECTION_LIBRARY}: h max abs err against {ref} '
         f'{err:.3g} (tolerance {SELECTION_ATOL[dtype]})')
     check(err <= SELECTION_ATOL[dtype], f'{name}: the selection LSTM computes '
           f'the kernel\'s function ({err:.3g})')
-    return _Selection(lstm, xg_in, flip)
+    return _Selection(lstm, xg_in, flip, state)
 
 
 def _cond_inputs(B, S, T, F, H, dtype, gen):
@@ -1304,7 +1355,7 @@ def phase_kernels():
             ('blstm_fullfused_cond_bwd', cond_bwd_case, COND_BWD_CASES),
             ('blstm_fullfused_spill_fwd', spill_case, SPILL_CASES),
             ('blstm_fullfused_spill_bwd', spill_bwd_case, SPILL_BWD_CASES),
-            ('lstm_fwd', lstm_case, LSTM_CASES),
+            ('lstm_fwd', lstm_case, LSTM_CASES + STREAM_CASES),
             ('lstm_bwd', lstm_bwd_case, LSTM_BWD_CASES)]
     for dtype in (F32, BF16):
         for name, case_fn, cases in plan:
@@ -1358,19 +1409,22 @@ def _agreement(model, ex, dtype, reference=None, what='plain versions'):
     mask_err = (got.mask - want.mask).abs().max().item()
     peak = want.time_estimate.abs().max().item()
     wave_err = (got.time_estimate - want.time_estimate).abs().max().item() / peak
-    log(f'serve {dtype}: kernels against {what}: mask max abs err '
-        f'{mask_err:.3g}, waveform max abs err / peak {wave_err:.3g} '
-        f'(tolerance {SERVE_ATOL[dtype]})')
+    log(f'serve {dtype}, {_head(model)}: kernels against {what}: mask max '
+        f'abs err {mask_err:.3g}, waveform max abs err / peak '
+        f'{wave_err:.3g} (tolerance {SERVE_ATOL[dtype]})')
     check(mask_err <= SERVE_ATOL[dtype], f'{dtype} served masks ({what})')
     check(wave_err <= SERVE_ATOL[dtype], f'{dtype} served waveforms ({what})')
     return {'mask_err': mask_err, 'wave_err': wave_err}
 
 
 def _flagship(storage_dtype=BF16, trials=1, **switches):
-    """The flagship model with random weights from seed 0."""
+    """The flagship model with random weights from seed 0; in bfloat16
+    storage with the bfloat16 head, as ``bench.py:42,49`` runs it
+    (``TSSEP_COMPUTE_DTYPE=bfloat16``, ``TSSEP_HEAD_BF16=1``), in float32
+    with the float32 head."""
     return _model(dict(FLAGSHIP, mask_estimator=dict(
         FLAGSHIP['mask_estimator'], num_averaged_permutations=trials)),
-        storage_dtype, **switches)
+        storage_dtype, head_dtype=storage_dtype, **switches)
 
 
 def _model(cfg, storage_dtype=BF16, **switches):
@@ -1378,6 +1432,12 @@ def _model(cfg, storage_dtype=BF16, **switches):
     model = Model.from_config(cfg, storage_dtype=storage_dtype,
                               device='cuda', **switches)
     return model.init_params(torch.Generator().manual_seed(0))
+
+
+def _head(model):
+    """The head's type, for the phase lines: 'head bfloat16' or 'head
+    float32'."""
+    return 'head ' + str(model.mask_estimator.head_dtype).split('.')[-1]
 
 
 def _serve(model, requests):
@@ -1432,8 +1492,8 @@ def phase_serving():
     torch.cuda.synchronize()
 
     times, launches = _serve(model, requests)
-    log(f'serve: {REQUESTS} requests of batch {SERVE_BATCH}, ms each '
-        f'{[round(t, 2) for t in times]}, launches {launches}')
+    log(f'serve: {REQUESTS} requests of batch {SERVE_BATCH}, {_head(model)}, '
+        f'ms each {[round(t, 2) for t in times]}, launches {launches}')
     check(launches == _expect({'blstm_fullfused_fwd': 3,
                                'blstm_bidi_fwd': 1}, REQUESTS),
           f'3 fully fused and 1 bidi launch per request, got {launches}')
@@ -1574,9 +1634,9 @@ def _train(model, steps, per_step, label):
     losses = trainer.train_steps(data, steps)
     train_s = time.perf_counter() - t0
     launches = _launches()
-    log(f'{label}: Trainer.train_steps {steps} steps of batch {TRAIN_BATCH} '
-        f'in {train_s:.2f} s (first calls included), losses {losses}, '
-        f'launches {launches}')
+    log(f'{label}: Trainer.train_steps {steps} steps of batch {TRAIN_BATCH}, '
+        f'{_head(model)}, in {train_s:.2f} s (first calls included), losses '
+        f'{losses}, launches {launches}')
     check(len(losses) == steps, f'{label}: a loss per step')
     check(all(map(math.isfinite, losses)), f'{label}: finite losses')
     check(launches == _expect(per_step, steps),
@@ -1659,8 +1719,9 @@ def phase_serving_switch(label, per_request, identical=False, **switches):
     torch.cuda.synchronize()
 
     times, launches = _serve(model, requests)
-    log(f'{label}: {REQUESTS} requests of batch {SERVE_BATCH}, ms each '
-        f'{[round(t, 2) for t in times]}, launches {launches}')
+    log(f'{label}: {REQUESTS} requests of batch {SERVE_BATCH}, '
+        f'{_head(model)}, ms each {[round(t, 2) for t in times]}, launches '
+        f'{launches}')
     check(launches == _expect(per_request, REQUESTS),
           f'{label}: per request {per_request}, got {launches}')
     agree = {'default': _agreement(model, requests[0], BF16, base,
@@ -1732,8 +1793,8 @@ def phase_serving_model(label, cfg, per_request, channels=1):
     torch.cuda.synchronize()
     times, launches = _serve(model, requests)
     log(f'{label}: {REQUESTS} requests of batch {SERVE_BATCH}, '
-        f'{channels} channel(s), ms each {[round(t, 2) for t in times]}, '
-        f'launches {launches}')
+        f'{channels} channel(s), {_head(model)}, ms each '
+        f'{[round(t, 2) for t in times]}, launches {launches}')
     check(launches == _expect(per_request, REQUESTS),
           f'{label}: per request {per_request}, got {launches}')
     agree = {'plain': _agreement(model, requests[0], BF16),
@@ -2208,7 +2269,7 @@ def phase_eval_flagship():
     calls = -(-chunks // EVAL_BATCH_CHUNKS)
     log(f'eval flagship: {EVAL_SECONDS} s, {EVAL_CHANNELS} channels, '
         f'{frames} frames, {chunks} chunks of {EVAL_CHUNK} every {EVAL_HOP}, '
-        f'{calls} forward calls of {EVAL_BATCH_CHUNKS}')
+        f'{calls} forward calls of {EVAL_BATCH_CHUNKS}, {_head(model)}')
     driver.run_recording(*recording[:2], beamform=False)      # warm-up
     runs = {}
     for name, beamform in (('beamform', True), ('masking', False)):
@@ -2616,6 +2677,270 @@ def _recipe_sim_kernel_checks(rows, seen):
             log(json.dumps(rows[name][-1]))
 
 
+#: serve streaming: the flagship (bf16, bf16 head) on one stream of
+#: ``STREAM_SECONDS`` of 16 kHz audio fed in blocks of ``STREAM_BLOCK``
+#: samples, chunks of ``STREAM_CHUNK`` frames with ``STREAM_LOOKAHEAD``
+#: frames of lookahead, audio emitted; its first ``STREAM_CHECK_SECONDS``
+#: against the plain versions, and a covering lookahead in float32 against
+#: the offline forward.
+STREAM_SECONDS, STREAM_BLOCK, STREAM_CHECK_SECONDS = 60, 4000, 10
+STREAM_RATE = 16000
+#: The streamed layers: pre_net, birnn0, birnn1, birnn2.
+STREAM_LAYERS = 4
+#: Covering lookahead in float32 against ``Model.forward`` on the same
+#: causal frames: the same f32 sums in other orders (cuBLAS projections and
+#: the one-direction first design against the fully fused kernel's), through
+#: four layers.
+STREAM_OFFLINE_ATOL = 1e-4
+#: The Kaldi-input TS-VAD model of ``tests/test_kaldi.py:113-141`` (KaldiMFCC
+#: 13 ceps at 8 kHz, units 2, projs 3, 't'): its features on the card
+#: (``features/kaldi.py``'s torch path), every layer fully fused.
+KALDI_TSVAD = {
+    'fe': {'factory': 'tssep_tpu.features.kaldi.KaldiMFCC',
+           'sample_frequency': 8000.0, 'num_ceps': 13, 'num_mel_bins': 23},
+    'reader': {'sample_rate': 8000, 'aux_size': 33},
+    'loss': {'factory': 'tssep_tpu.tasks.losses.VADSigmoidBCE'},
+    'mask_estimator': {
+        'idim': 13, 'odim': 1, 'units': 2, 'projs': 3,
+        'aux_net_output_size': 33, 'num_averaged_permutations': 1,
+        'output_resolution': 't'}}
+
+
+def _stream_input(seconds, seed=0):
+    """``seconds`` of audio and the 8 speakers' embeddings (513), numpy,
+    from ``seed``."""
+    rng = np.random.default_rng(seed)
+    samples = (0.1 * rng.standard_normal(seconds * STREAM_RATE)).astype(
+        np.float32)
+    return samples, rng.uniform(0, 1, (SPEAKERS, BINS)).astype(np.float32)
+
+
+def _stream(session, samples):
+    """Feeds ``samples`` in blocks of ``STREAM_BLOCK`` and flushes; returns
+    the chunks and the ms of each (from asking for it to its arrival on the
+    host, CUDA-synchronized)."""
+    chunks, ms = [], []
+
+    def drain(gen):
+        while True:
+            t0 = time.perf_counter()
+            try:
+                chunk = next(gen)
+            except StopIteration:
+                return
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            chunks.append(chunk)
+
+    for i in range(0, len(samples), STREAM_BLOCK):
+        drain(session.process(samples[i:i + STREAM_BLOCK]))
+    drain(session.flush())
+    return chunks, ms
+
+
+def _stream_stages(session):
+    """Wraps the session's stages (``_stft_more``, ``_features``,
+    ``_block_fn``, ``_synthesize``) to sum their ms, each ending in a CUDA
+    synchronize; returns the sums, filled as the session runs."""
+    stage_ms = {}
+    for name in ('_stft_more', '_features', '_block_fn', '_synthesize'):
+        def timed(*args, _fn=getattr(session, name), _name=name[1:], **kw):
+            t0 = time.perf_counter()
+            out = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            stage_ms[_name] = (stage_ms.get(_name, 0.0)
+                               + 1e3 * (time.perf_counter() - t0))
+            return out
+        setattr(session, name, timed)
+    return stage_ms
+
+
+def _stream_blocks(frames, chunk, lookahead):
+    """The blocks a session cuts ``frames`` into: (block frames, split)."""
+    blocks, pos = [], 0
+    while pos < frames:
+        length = min(chunk + lookahead, frames - pos)
+        blocks.append((length, min(chunk, length)))
+        pos += blocks[-1][1]
+    return blocks
+
+
+def _session(model, aux, lookahead=STREAM_LOOKAHEAD):
+    return streaming.StreamingSession(
+        model, aux, chunk_frames=STREAM_CHUNK, lookahead_frames=lookahead,
+        emit_audio=True)
+
+
+def _stream_agreement(got, want):
+    """Max abs error of the masks and of the audio over its peak, chunk
+    by chunk."""
+    mask_err = max(float(np.abs(g[0] - w[0]).max()) for g, w in zip(got, want))
+    peak = max(float(np.abs(w[2]).max()) for w in want)
+    wave_err = max(float(np.abs(g[2] - w[2]).max())
+                   for g, w in zip(got, want)) / peak
+    return mask_err, wave_err
+
+
+def _kaldi_serve():
+    """The Kaldi-input TS-VAD model serves one batch (2 x 2 s, 2 channels,
+    reference channel 1, 4 speakers) on the card, its features made there,
+    the launch counts set to 0 just before; its logits against the plain
+    versions, in bf16 and f32 storage."""
+    rng = np.random.default_rng(0)
+    ex = {'observation': torch.from_numpy(rng.standard_normal(
+              (2, 2, 16000)).astype(np.float32)).cuda(),
+          'auxInput': torch.from_numpy(rng.standard_normal(
+              (2, 4, 33)).astype(np.float32)).cuda(),
+          'reference_channel': 1}
+    out = {}
+    for dtype in (BF16, F32):
+        model = _model(KALDI_TSVAD, dtype)
+        check(type(model.fe).__name__ == 'KaldiMFCC'
+              and not hasattr(model.fe, 'stft'), 'a waveform extractor')
+        _reset_launches()
+        got = model(ex)
+        torch.cuda.synchronize()
+        launches = _launches()
+        want = _plain_forward(model, ex)
+        frames = model.fe.num_frames(16000)
+        check(tuple(got.logit.shape) == (2, 4, 1, frames, 1),
+              f'kaldi logits {tuple(got.logit.shape)}')
+        check(bool(torch.isfinite(got.logit).all()), 'kaldi: finite logits')
+        err = (got.mask - want.mask).abs().max().item()
+        logit_err = (got.logit - want.logit).abs().max().item()
+        log(f'serve kaldi {dtype}: KaldiMFCC on the card, {frames} frames, '
+            f'launches {launches}; mask max abs err {err:.3g}, logit max abs '
+            f'err {logit_err:.3g} against the plain versions (tolerance '
+            f'{SERVE_ATOL[dtype]} on the masks)')
+        check(err <= SERVE_ATOL[dtype], f'kaldi {dtype} masks')
+        check(launches == _expect({'blstm_fullfused_fwd': 4}, 1),
+              f'kaldi: 4 fully fused launches, got {launches}')
+        out[str(dtype).split('.')[-1]] = {'launches': launches,
+                                          'mask_err': err,
+                                          'logit_err': logit_err}
+    return out
+
+
+def phase_serving_streaming():
+    """``StreamingSession`` on the flagship (bf16 storage, bf16 head, random
+    weights from seed 0): one 60 s stream fed in blocks of 4,000 samples,
+    chunks of 50 frames, lookahead 12, audio emitted. ms a chunk, the
+    real-time factor, the launches (``lstm_fwd`` 3 a layer and block, 2
+    where a block has no lookahead left; nothing else), the peak memory.
+    Checks: the first 10 s against the same session through the plain
+    versions (masks and audio, ``CLUSTER_TOL['lstm_fwd']``); in float32 a
+    covering lookahead against ``Model.forward`` on the same causal frames
+    (1e-4); the Kaldi-input TS-VAD model served against the plain
+    versions. (``lstm_fwd`` from a nonzero state against its plain version
+    at the session's shapes: the kernels phase's stream cases.)"""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _flagship()
+    samples, aux = _stream_input(STREAM_SECONDS)
+    check_samples = samples[:STREAM_CHECK_SECONDS * STREAM_RATE]
+    _stream(_session(model, aux), samples[:2 * STREAM_BLOCK])   # warm-up
+    torch.cuda.synchronize()
+
+    session = _session(model, aux)
+    frames = (len(samples) - model.fe.window_length) // model.fe.shift + 1
+    blocks = _stream_blocks(frames, STREAM_CHUNK, STREAM_LOOKAHEAD)
+    want_launches = STREAM_LAYERS * sum(3 if n > split else 2
+                                        for n, split in blocks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _reset_launches()
+    t0 = time.perf_counter()
+    chunks, ms = _stream(session, samples)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+    check(len(chunks) == len(blocks), f'{len(blocks)} chunks, got '
+          f'{len(chunks)}')
+    check(launches == {name: want_launches if name == 'lstm_fwd' else 0
+                       for name in KERNELS},
+          f'streaming: {want_launches} lstm_fwd launches and no other, '
+          f'got {launches}')
+    emitted = sum(m.shape[-2] for m, _, _ in chunks)
+    audio = np.concatenate([a for _, _, a in chunks], axis=-1)
+    check(emitted == frames, f'{frames} frames emitted, got {emitted}')
+    check(audio.shape == (SPEAKERS, (frames - 1) * model.fe.shift
+                          + model.fe.window_length),
+          f'streamed audio {audio.shape}')
+    check(all(np.isfinite(m).all() and np.isfinite(a).all()
+              for m, _, a in chunks), 'finite masks and audio')
+    rtf = wall / STREAM_SECONDS
+    staged = _session(model, aux)
+    stage_ms = _stream_stages(staged)
+    _, staged_ms = _stream(staged, samples)
+    stage_ms['rest'] = sum(staged_ms) - sum(stage_ms.values())
+    stats = {'p50': statistics.median(ms),
+             'p95': float(np.percentile(ms, 95)), 'max': max(ms)}
+    log(f'serve streaming: {STREAM_SECONDS} s at {STREAM_RATE} Hz in blocks '
+        f'of {STREAM_BLOCK} samples, {_head(model)}, chunk {STREAM_CHUNK} '
+        f'lookahead {STREAM_LOOKAHEAD} frames: {len(chunks)} chunks, ms a '
+        f'chunk {json.dumps(stats)}, {wall:.3f} s in all, real-time factor '
+        f'{rtf:.4f}, launches {launches} ({3 * STREAM_LAYERS} a block with '
+        f'its lookahead, {2 * STREAM_LAYERS} without), peak memory over the '
+        f'weights {peak:.2f} MiB')
+    log(f'serve streaming: ms by stage over the stream, each synchronized '
+        f'(the chunks\' ms summed, a second run): '
+        f'{json.dumps(stage_ms)}')
+
+    # 1. the kernels against the plain versions, bf16, first 10 s
+    got, _ = _stream(_session(model, aux), check_samples)
+    with mock.patch.object(streaming, 'lstm_fwd', kb.lstm_fwd_plain):
+        want, _ = _stream(_session(model, aux), check_samples)
+    mask_err, wave_err = _stream_agreement(got, want)
+    tol = CLUSTER_TOL['lstm_fwd']
+    log(f'serve streaming bf16: kernels against the plain versions on '
+        f'{STREAM_CHECK_SECONDS} s ({len(got)} chunks): mask max abs err '
+        f'{mask_err:.3g}, audio max abs err / peak {wave_err:.3g} '
+        f'(tolerance {tol})')
+    check(len(got) == len(want), 'as many chunks through the plain versions')
+    check(mask_err <= tol, f'streamed masks against the plain versions '
+          f'{mask_err:.3g}')
+    check(wave_err <= tol, f'streamed audio against the plain versions '
+          f'{wave_err:.3g}')
+
+    # 2. float32, a covering lookahead: the offline forward's masks
+    model32 = _flagship(F32)
+    model32.load_state_dict(model.state_dict())
+    covering = _session(model32, aux, lookahead=10 ** 6)
+    streamed, _ = _stream(covering, check_samples)
+    reference = _session(model32, aux)
+    reference._sample_buf = check_samples
+    reference._stft_more()
+    causal = reference._frame_buf
+    feats = reference._features(causal).astype(np.float32)
+    offline = model32({
+        'Input': torch.from_numpy(feats[None]).cuda(),
+        'Observation': torch.from_numpy(
+            causal[None, None].astype(np.complex64)).cuda(),
+        'auxInput': torch.from_numpy(aux[None]).cuda(),
+        'reference_channel': 0}).mask[0].float().cpu().numpy()
+    masks = np.concatenate([m for m, _, _ in streamed], axis=-2)
+    check(masks.shape == offline.shape, f'covering: {masks.shape} against '
+          f'{offline.shape}')
+    offline_err = float(np.abs(masks - offline).max())
+    log(f'serve streaming f32: covering lookahead ({len(streamed)} chunks) '
+        f'against Model.forward on the same causal frames: mask max abs err '
+        f'{offline_err:.3g} (tolerance {STREAM_OFFLINE_ATOL})')
+    check(offline_err <= STREAM_OFFLINE_ATOL,
+          f'covering lookahead against offline {offline_err:.3g}')
+
+    # 3. lstm_fwd from a carried state: the kernels phase's stream cases
+    # 4. the Kaldi-input TS-VAD model on the card
+    kaldi = _kaldi_serve()
+    return {'launches': launches, 'chunks': len(chunks), 'ms': stats,
+            'ms_all': ms, 'wall_s': wall, 'real_time_factor': rtf,
+            'peak_mib': peak, 'head': _head(model), 'stage_ms': stage_ms,
+            'agreement': {'plain bf16': {'mask_err': mask_err,
+                                         'wave_err': wave_err},
+                          'offline f32': offline_err},
+            'kaldi': kaldi}
+
+
 def pair_summary(switch, pair, rows, serving, training):
     """Logs a redesigned pair in bfloat16 at batch 16: each kernel's
     numbers, summed over its calls on a served request (forward) or a
@@ -2666,6 +2991,16 @@ def kernels_line(rows, phase_launches):
         if all('parts_ms' in r for r in path):
             extra['parts_ms'] = {part: sum(r['parts_ms'][part] for r in path)
                                  for part in path[0]['parts_ms']}
+        stream = [r for r in calls if ' stream ' in r['name']
+                  and r['dtype'] == 'bfloat16']
+        if stream:
+            # one streamed block: each stream case twice (pre_net and
+            # birnn2 on 1 row, birnn0 and birnn1 on 8)
+            extra['stream_block'] = {
+                k: (None if any(r.get(k) is None for r in stream)
+                    else 2 * sum(r[k] for r in stream))
+                for k in ('ms', 'plain_ms', 'bound_ms', 'library_ms',
+                          'first_design_ms')}
         kernels.append({
             'name': name, 'route': 'cuda', 'source': SOURCES[name][0],
             'replaces': SOURCES[name][1],
@@ -2755,11 +3090,15 @@ def main():
         log(f'-- eval cli done at {time.perf_counter() - t0:.1f} s')
     recipe_sim = phase_recipe_simulated(rows)
     log(f'-- recipe simulated done at {time.perf_counter() - t0:.1f} s')
+    streamed = phase_serving_streaming()
+    log(f'-- serve streaming done at {time.perf_counter() - t0:.1f} s')
     log(json.dumps({'serving cond_fuse': serving_cond, 'training': training,
                     **switched, 'recipe cli': recipe,
                     'recipe cli flagship': recipe_flagship,
                     'eval flagship': evaluated, 'eval cli': evaluated_cli,
-                    'recipe simulated': recipe_sim}))
+                    'recipe simulated': recipe_sim,
+                    'serve streaming': {k: v for k, v in streamed.items()
+                                        if k != 'ms_all'}}))
     pair_summary('cond_fuse', ('blstm_fullfused_cond_fwd',
                                'blstm_fullfused_cond_bwd'), rows,
                  serving_cond, switched['train cond_fuse'])
@@ -2786,7 +3125,10 @@ def main():
         'recipe simulated transcribe':
             recipe_sim['ctc']['transcribe_alone']['launches'],
         **{f'recipe simulated eval {name}': r['launches']
-           for name, r in recipe_sim['evals'].items()}})))
+           for name, r in recipe_sim['evals'].items()},
+        'serve streaming': streamed['launches'],
+        **{f'serve kaldi {dtype}': r['launches']
+           for dtype, r in streamed['kaldi'].items()}})))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

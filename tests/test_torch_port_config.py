@@ -187,14 +187,8 @@ def test_port_builds_from_a_jax_dumped_config(tmp_path):
 @pytest.mark.parametrize('alias', sorted(jax_aliases._ALIASES))
 def test_reference_alias_resolves_in_the_port(alias):
     """Each alias of the reference's factory paths resolves to the port's
-    class of the JAX target's name; the targets whose modules wait for
-    Queue 1 item 5c raise ``NotImplementedError`` naming it."""
+    class of the JAX target's name, the Kaldi features' too."""
     target = jax_aliases._ALIASES[alias]
-    if target.startswith(('tssep_tpu.eval.streaming',
-                          'tssep_tpu.features.kaldi')):
-        with pytest.raises(NotImplementedError, match='Queue 1 item 5c'):
-            port_cfg.import_class(alias)
-        return
     cls = port_cfg.import_class(alias)
     assert cls.__module__ == mapped(target).rpartition('.')[0]
     assert cls.__name__ == target.rpartition('.')[2]
@@ -209,15 +203,14 @@ def test_reference_alias_resolves_in_the_port(alias):
     'tssep_tpu.eval.streaming.StreamingSession',
     'tssep_tpu.features.kaldi.KaldiMFCC'])
 def test_simulated_recipe_modules_resolve(path):
-    """The simulated-corpus recipe's modules resolve in the port; only
-    streaming and the Kaldi features still raise, naming item 5c."""
-    if path.startswith(('tssep_tpu.eval.streaming',
-                        'tssep_tpu.features.kaldi')):
-        with pytest.raises(NotImplementedError, match='Queue 1 item 5c'):
-            port_cfg.import_class(path)
-        return
+    """The simulated-corpus recipe's modules resolve in the port, streaming
+    and the Kaldi features too; only the distributed modules (item 4) still
+    raise, naming their item."""
     found = port_cfg.import_class(path)
     assert found.__module__ == mapped(path).rpartition('.')[0]
+    assert found.__name__ == path.rpartition('.')[2]
+    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
+        port_cfg.import_class('tssep_tpu.dist.mesh.make_mesh')
 
 
 def test_port_builds_from_a_jax_simulated_stage_config(tmp_path):

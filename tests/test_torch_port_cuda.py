@@ -773,6 +773,58 @@ def test_cluster_lstm_pair_is_the_bidi_pairs_halves(gen, B, T, H):
         assert _rel_err([dw], [dw2[d]]) <= CLUSTER_BWD_RTOL
 
 
+#: The streaming session's launches at the flagship (rows 1 and 8, H 300;
+#: chunk T 50, lookahead T 12, reverse T 62), and ragged ones.
+STATE_CASES = [(1, 50, 300), (8, 12, 300), (8, 62, 300), (1, 1, 16),
+               (13, 9, 37), (128, 5, 512)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('B,T,H', STATE_CASES)
+def test_lstm_fwd_from_a_state_matches_plain(gen, B, T, H, reverse, dtype):
+    """From a nonzero carried state (h0, c0), both routes (the f32 first
+    design, the clustered bf16 kernel): h and c against the plain version;
+    one launch a call; zeros given as the state are no state, bit for
+    bit."""
+    xg = torch.randn(B, T, 4 * H, generator=gen, device='cuda').to(dtype)
+    w_hh_t = _uniform(gen, (H, 4 * H), H ** -0.5, dtype)
+    h0 = _uniform(gen, (B, H), 1.0, dtype)
+    c0 = _uniform(gen, (B, H), 2.0, dtype)
+    before = kb.lstm_fwd.launches
+    got = kb.lstm_fwd(xg, w_hh_t, reverse=reverse, with_cell=True, h0=h0,
+                      c0=c0)
+    assert kb.lstm_fwd.launches == before + 1
+    want = kb.lstm_fwd_plain(xg, w_hh_t, reverse=reverse, with_cell=True,
+                             h0=h0, c0=c0)
+    atol = CLUSTER_FWD_ATOL if dtype == torch.bfloat16 else ATOL[dtype]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0)
+    zero = torch.zeros(B, H, device='cuda', dtype=dtype)
+    for g, w in zip(kb.lstm_fwd(xg, w_hh_t, reverse=reverse, with_cell=True,
+                                h0=zero, c0=zero),
+                    kb.lstm_fwd(xg, w_hh_t, reverse=reverse,
+                                with_cell=True)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize('split', [1, 50])
+def test_lstm_fwd_continued_from_its_state_is_one_walk(gen, split):
+    """float32: a walk cut at ``split`` and continued from the committed
+    (h, c) of its last step is the uncut walk, bit for bit (the first
+    design keeps c in f32 and stores it unrounded), as the streaming
+    session's chunk and lookahead launches continue each other."""
+    B, T, H = 8, 62, 300
+    xg = torch.randn(B, T, 4 * H, generator=gen, device='cuda')
+    w_hh_t = _uniform(gen, (H, 4 * H), H ** -0.5, torch.float32)
+    whole = kb.lstm_fwd(xg, w_hh_t, with_cell=True)
+    h1, c1 = kb.lstm_fwd(xg[:, :split], w_hh_t, with_cell=True)
+    h2, c2 = kb.lstm_fwd(xg[:, split:], w_hh_t, with_cell=True,
+                         h0=h1[:, -1].contiguous(), c0=c1[:, -1].contiguous())
+    assert torch.equal(torch.cat([h1, h2], 1), whole[0])
+    assert torch.equal(torch.cat([c1, c2], 1), whole[1])
+
+
 def test_cluster_lstm_strided_inputs_read_in_place(gen):
     """The one-direction pair's bf16 route reads xg and dh with any batch
     and time strides (slices of wider tensors), giving the bits of

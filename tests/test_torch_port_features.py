@@ -20,6 +20,7 @@ from tssep_tpu.config.configurable import from_config, get_config
 from tssep_tpu.features import extractor as jax_fe
 from tssep_tpu.signal import mel as jax_mel
 from tssep_tpu_torch.features import extractor as fe
+from tssep_tpu_torch.features.kaldi import KaldiMFCC
 from tssep_tpu_torch.signal import mel
 
 RTOL = 1e-4
@@ -187,8 +188,8 @@ def test_concatenation_settings_reach_the_parts_as_in_jax():
 def test_fe_from_config_names():
     assert isinstance(fe.fe_from_config(
         {'factory': 'tssep_tpu.features.extractor.TorchMFCC'}), fe.MFCC)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 5'):
-        fe.fe_from_config({'factory': 'KaldiMFCC'})
+    kaldi = fe.fe_from_config({'factory': 'KaldiMFCC', 'num_ceps': 20})
+    assert isinstance(kaldi, KaldiMFCC) and kaldi.output_size == 20
     with pytest.raises(ValueError):
         fe.fe_from_config({'factory': 'NoSuchFeature'})
     with pytest.raises(ValueError):

@@ -594,3 +594,50 @@ def test_one_output_wgrad_splits_fit_their_workspace(monkeypatch):
         assert dxg.shape == xg.shape and dxg.dtype == torch.bfloat16
         assert ws.shape == (splits - 1, 300, 1200)
         assert ws.dtype == dg.dtype == dw.dtype == torch.float32
+
+
+@pytest.mark.parametrize('rows', [1, 8])
+def test_one_direction_geometry_at_the_streamed_layers(rows):
+    """A streamed block's ``lstm_fwd`` launches at the flagship (H 300): the
+    carried state's rows, 1 (pre_net and the stacked birnn2) or 8 (birnn0
+    and birnn1, the speakers), lie in one 8-row tile of one cluster; the
+    kernel loads each row's h0 into every CTA's h buffer and each unit's c0
+    into the registers of the lane that updates it."""
+    geo = kb.cluster_geometry('fwd_xg', rows, 4 * 300, 300,
+                              slots=_h100_slots, directions=1)
+    _check(geo, rows, 4 * 300, 300)
+    assert (geo.row_tile, geo.tiles, geo.clusters, geo.waves) == (8, 1, 1, 1)
+    assert (geo.cluster, geo.units, geo.active) == (8, 40, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,H', [(13, 37), (300, 300)])
+def test_lstm_fwd_state_rows_follow_the_tiles(B, H, dtype):
+    """On the card: a carried state whose rows straddle row tiles (and, at
+    300 rows, several waves of clusters, CTAs that own no unit at H 37)
+    reaches each row's walk: the kernel's h and c from (h0, c0) against the
+    plain version's, and a state that differs in one row changes that
+    row's outputs only."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    T = 9
+    xg = torch.randn(B, T, 4 * H, generator=gen, device='cuda').to(dtype)
+    w_hh_t = ((2 * torch.rand(H, 4 * H, generator=gen, device='cuda') - 1)
+              * H ** -0.5).to(dtype)
+    h0 = (2 * torch.rand(B, H, generator=gen, device='cuda') - 1).to(dtype)
+    c0 = (4 * torch.rand(B, H, generator=gen, device='cuda') - 2).to(dtype)
+    atol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    got = kb.lstm_fwd(xg, w_hh_t, with_cell=True, h0=h0, c0=c0)
+    want = kb.lstm_fwd_plain(xg, w_hh_t, with_cell=True, h0=h0, c0=c0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=0)
+    row = B // 2
+    h1 = h0.clone()
+    h1[row] = -h1[row]
+    moved = kb.lstm_fwd(xg, w_hh_t, with_cell=True, h0=h1, c0=c0)
+    others = torch.arange(B, device='cuda') != row
+    for g, m in zip(got, moved):
+        assert torch.equal(g[others], m[others])
+        assert not torch.equal(g[row], m[row])

@@ -185,12 +185,18 @@ def test_load_npz_reads_a_jax_checkpoint(tmp_path):
 
 
 def test_not_ported_options_raise():
-    """The waveform feature extractors wait for ``features/kaldi.py``
-    (ROADMAP Queue 1 item 5): naming one raises, and says so."""
-    cfg = _small_config('mul', 3, False)
+    """A waveform feature extractor (``features/kaldi.py``) now builds into
+    a model whose estimator takes its width, as JAX's does; what stays
+    unported (multi-host sharding, ROADMAP Queue 1 item 4) raises and says
+    so."""
+    cfg = _small_config('cat', 3, False)
     cfg['fe'] = {'factory': 'tssep_tpu.features.kaldi.KaldiMFCC'}
-    with pytest.raises(NotImplementedError, match='Queue 1 item 5'):
-        Model.from_config(cfg, device='cpu')
+    ours = Model.from_config(cfg, device='cpu')
+    ref = JaxModel.new(cfg)
+    assert type(ours.fe).__name__ == type(ref.fe).__name__ == 'KaldiMFCC'
+    assert ours.mask_estimator.idim == ref.mask_estimator.idim == 13
+    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
+        ours.prepare_train_dataset(host_shard=True)
 
 
 @pytest.mark.parametrize('kwargs,raises', [

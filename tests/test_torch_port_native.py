@@ -1,15 +1,70 @@
 """The port's native runtime (``runtime/native.py`` and its own copy of the
 C++ sources), built with g++ into ``build/``: WAV and shard round trips,
 the interval kernel, and ``der_counts`` against the port's ``der``; the
-eval driver's WAV writer is the native one."""
+eval driver's WAV writer is the native one.
+
+On import, this file also makes sure the JAX package's native library
+(``tssep_tpu/runtime/libtssep_runtime.so``, which the JAX tests and the port
+tests that hold the port's shards against JAX's call) is whole and loaded in
+this process before any test runs: ``tssep_tpu.runtime.native.lib`` has g++
+write the library in place, so pytest workers that build it at the same time
+can load a half-written file and keep that error for every later call. Under
+an exclusive lock on a file in the temporary directory, one process at a
+time clears such an error and loads the library, building it first into a
+temporary file that then replaces it where the one on disk does not load.
+xdist workers import every test file before the first test is scheduled.
+"""
+
+import fcntl
+import os
+import subprocess
+import tempfile
+from pathlib import Path
 
 import numpy as np
 import pytest
 import scipy.optimize
 
+from tssep_tpu.runtime import native as jax_native
 from tssep_tpu_torch.eval import driver
 from tssep_tpu_torch.eval.metrics import der
 from tssep_tpu_torch.runtime import native
+
+
+def _jax_native_loaded():
+    """Loads the JAX package's native library under an exclusive lock (see
+    the module docstring); a host without g++ still collects."""
+    lock = Path(tempfile.gettempdir()) / 'tssep_tpu_runtime_build.lock'
+    with open(lock, 'w') as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            if jax_native._lib is not None:
+                return
+            jax_native._build_error = None
+            try:
+                jax_native.lib()
+                return
+            except RuntimeError:
+                jax_native._build_error = None
+            tmp = jax_native._LIB_PATH.with_name(
+                f'{jax_native._LIB_PATH.name}.{os.getpid()}.tmp')
+            try:
+                subprocess.run(
+                    ['g++', '-O3', '-shared', '-fPIC', '-std=c++17', '-o',
+                     str(tmp), *map(str, sorted(
+                         jax_native._SRC_DIR.glob('*.cc')))],
+                    check=True, capture_output=True)
+                tmp.replace(jax_native._LIB_PATH)
+                jax_native.lib()
+            except (OSError, subprocess.CalledProcessError, RuntimeError):
+                pass
+            finally:
+                tmp.unlink(missing_ok=True)
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+_jax_native_loaded()
 
 
 def test_library_builds_into_build_dir():

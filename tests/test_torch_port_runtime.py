@@ -388,7 +388,10 @@ def test_runtime_options(monkeypatch):
            'TSSEP_PALLAS_FULLFUSE': '0', 'TSSEP_PALLAS_BIDI': '0'}
     assert run.runtime_options(['--cpu'], env) == {
         'device': torch.device('cpu'), 'storage_dtype': torch.bfloat16,
-        'cond_fuse': True, 'fullfuse': False, 'spill': False, 'bidi': False}
+        'head_dtype': F32, 'cond_fuse': True, 'fullfuse': False,
+        'spill': False, 'bidi': False}
+    assert run.runtime_options(['--cpu'], dict(env, TSSEP_HEAD_BF16='1'))[
+        'head_dtype'] == torch.bfloat16
     assert run.runtime_options(['--cpu'], {})['storage_dtype'] == F32
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='--cpu'):

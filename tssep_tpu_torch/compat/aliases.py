@@ -2,9 +2,7 @@
 written for the torch reference (``tssep.train.*`` dotted paths) resolve to
 the port's classes, so a user can point the port at an existing reference
 ``config.yaml``. The targets are the JAX package's paths under
-``tssep_tpu_torch.``; those under ``features/kaldi.py`` wait for their
-module (ROADMAP Queue 1 item 5c) and raise ``NotImplementedError`` until
-then.
+``tssep_tpu_torch.``.
 """
 
 from tssep_tpu_torch.config.configurable import register_alias

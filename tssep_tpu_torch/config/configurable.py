@@ -18,9 +18,9 @@ imported. The reference's ``tssep.train.*`` paths resolve through
 ``compat/aliases.py``; a bare class name resolves among the port's modules
 that hold factories. A class object resolves to itself.
 
-Port-only arguments (``PORT_ONLY``: the device, the storage type and the
-kernel switches) are keyword-only in the port's constructors. ``get_config``
-never writes them, so they never reach a ``config.yaml``;
+Port-only arguments (``PORT_ONLY``: the device, the storage and head types
+and the kernel switches) are keyword-only in the port's constructors.
+``get_config`` never writes them, so they never reach a ``config.yaml``;
 ``from_config(config, **options)`` passes each option to every factory
 whose signature takes it.
 """
@@ -54,8 +54,8 @@ __all__ = [
 
 #: Keyword-only arguments of the port's constructors that choose where and
 #: how a model runs; never part of a configuration.
-PORT_ONLY = frozenset({'device', 'storage_dtype', 'cond_fuse', 'fullfuse',
-                       'spill', 'bidi'})
+PORT_ONLY = frozenset({'device', 'storage_dtype', 'head_dtype', 'cond_fuse',
+                       'fullfuse', 'spill', 'bidi'})
 
 _JAX_PACKAGE = 'tssep_tpu.'
 _PORT_PACKAGE = 'tssep_tpu_torch.'
@@ -63,14 +63,13 @@ _PORT_PACKAGE = 'tssep_tpu_torch.'
 #: Modules of the JAX package the port has not ported yet, and where they
 #: stand in ROADMAP.md.
 NOT_PORTED = {
-    'tssep_tpu_torch.features.kaldi': 'ROADMAP Queue 1 item 5c',
-    'tssep_tpu_torch.eval.streaming': 'ROADMAP Queue 1 item 5c',
     'tssep_tpu_torch.dist.': 'ROADMAP Queue 1 item 4',
 }
 
 #: The port's modules that hold factories, searched for a bare class name.
 _FACTORY_MODULES = (
-    'tssep_tpu_torch.features.extractor', 'tssep_tpu_torch.nn.estimator',
+    'tssep_tpu_torch.features.extractor', 'tssep_tpu_torch.features.kaldi',
+    'tssep_tpu_torch.nn.estimator',
     'tssep_tpu_torch.nn.norm', 'tssep_tpu_torch.tasks.enhancer',
     'tssep_tpu_torch.tasks.losses', 'tssep_tpu_torch.tasks.model',
     'tssep_tpu_torch.data.dummy', 'tssep_tpu_torch.train.optimizer',

@@ -12,9 +12,11 @@ driver (DER + SI-SDR + cpWER, WAV export).
 ``--key=value`` overrides a keyword of :func:`main` (e.g. ``--vocabulary=8
 --eval_examples=8``). The recipe runs on the card; ``--cpu`` runs it on the
 CPU, and without CUDA and without it the recipe raises. The stages store in
-``TSSEP_COMPUTE_DTYPE`` (default bfloat16 here, as the JAX recipe's), with
-the kernel switches of ``tssep_tpu_torch.train.run.runtime_options``; the
-CTC recognizer stays in float32.
+``TSSEP_COMPUTE_DTYPE`` (default bfloat16 here, as the JAX recipe's) with
+their head in bfloat16 unless ``TSSEP_HEAD_BF16=0`` (the JAX recipe's
+default too), and the kernel switches of
+``tssep_tpu_torch.train.run.runtime_options``; the CTC recognizer stays in
+float32.
 
 This is the same shape as the reference's LibriCSS recipe (which needs its
 companion repo for data prep and eval); here every stage lives in this
@@ -141,7 +143,8 @@ def main(work_dir='egs/simulated', train_examples=None, eval_examples=4,
     ``device``: the card (default; raises without CUDA) or ``'cpu'``."""
     # Numerics: the recipe's stages store in bfloat16 (the JAX recipe's
     # default, ``TSSEP_COMPUTE_DTYPE=bfloat16``: the clustered bf16
-    # kernels); a caller's TSSEP_COMPUTE_DTYPE wins.
+    # kernels) with the bf16 head (``TSSEP_HEAD_BF16=1``,
+    # ``tssep_tpu/exp/run_simulated.py:139``); a caller's variables win.
     from tssep_tpu_torch.config.configurable import from_config
     from tssep_tpu_torch.data.simulate import MeetingSimulator, simulate_corpus
     from tssep_tpu_torch.eval.run import evaluate
@@ -150,6 +153,7 @@ def main(work_dir='egs/simulated', train_examples=None, eval_examples=4,
 
     environ = dict(os.environ)
     environ.setdefault('TSSEP_COMPUTE_DTYPE', 'bfloat16')
+    environ.setdefault('TSSEP_HEAD_BF16', '1')
     device = torch.device(device)
     options = runtime_options(['--cpu'] if device.type == 'cpu' else [],
                               environ)

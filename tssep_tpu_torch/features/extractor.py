@@ -14,7 +14,13 @@
 
 ``fe_from_config`` builds one from the JAX configuration's form. The data
 path runs on torch tensors; the constants are numpy, as in the JAX package.
-The streaming forms (``streaming_feature``) are not ported here.
+
+The streaming protocol (``init_streaming_state`` / ``streaming_feature``,
+``eval/streaming.py``) runs on the host in numpy, as the JAX package's
+does: frame-local extractors are exact block by block; utterance statistics
+(the max norm's max, the MVN mean, the MFCC's top-dB reference) become
+running statistics over the frames seen so far; the IPD extractors and any
+other with no causal form raise.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from tssep_tpu_torch.config.configurable import from_config, get_config
+from tssep_tpu_torch.features.kaldi import KaldiMFCC
 from tssep_tpu_torch.signal.mel import amplitude_to_db, create_dct, mel_filterbank
 from tssep_tpu_torch.signal.stft import STFT
 from tssep_tpu_torch.utils.factory import factory_name
@@ -71,14 +78,43 @@ class STFTFeatures:
     def stft(self, signal):
         return self._stft.stft(signal)
 
-    def istft(self, stft_signal, num_samples=None):
-        return self._stft.istft(stft_signal, num_samples=num_samples)
+    def istft(self, stft_signal, num_samples=None, segment_dtype=None):
+        return self._stft.istft(stft_signal, num_samples=num_samples,
+                                segment_dtype=segment_dtype)
 
     def stft_to_feature(self, stft_signals):
         return stft_signals
 
     def __call__(self, signal):
         return self.stft_to_feature(self.stft(signal))
+
+    # -- streaming (JAX ``features/extractor.py:92-116``) ------------------
+    #: True when ``stft_to_feature`` is frame-local (no statistics across
+    #: frames): block by block, streaming then equals offline.
+    frame_local = False
+
+    def init_streaming_state(self):
+        """Initial state for ``streaming_feature`` (None: stateless)."""
+        return None
+
+    def streaming_feature(self, block, state):
+        """Features of a block of STFT frames (numpy, (..., T, F)) with
+        causal statistics: utterance statistics become running statistics
+        over every frame seen so far; frame-local extractors are exact.
+        Returns ``(features, state)``. Extractors whose statistics have no
+        causal form raise rather than change what the features mean."""
+        if self.frame_local:
+            return _np_feature(self, block), state
+        raise NotImplementedError(
+            f'{type(self).__name__} has cross-frame feature statistics '
+            f'with no causal streaming equivalent implemented; streaming '
+            f'inference would silently change semantics. Use a frame-local '
+            f'or running-stats extractor, or implement streaming_feature.')
+
+
+def _np_feature(fe, block):
+    """``fe.stft_to_feature`` of a numpy block, as numpy."""
+    return fe.stft_to_feature(torch.from_numpy(np.asarray(block))).numpy()
 
 
 def _checked_size(output_size, expected):
@@ -88,11 +124,15 @@ def _checked_size(output_size, expected):
 
 
 class AbsSTFT(STFTFeatures):
+    frame_local = True
+
     def stft_to_feature(self, stft_signals):
         return stft_signals.abs()
 
 
 class Log1pAbsSTFT(STFTFeatures):
+    frame_local = True
+
     def stft_to_feature(self, stft_signals):
         return torch.log1p(stft_signals.abs())
 
@@ -119,6 +159,21 @@ class MVNLog1pAbsSTFT(Log1pAbsSTFT):
         feature = super().stft_to_feature(stft_signals)
         return feature - feature.mean(dim=-2, keepdim=True)
 
+    frame_local = False
+
+    def init_streaming_state(self):
+        return {'count': 0, 'sum': None}
+
+    def streaming_feature(self, block, state):
+        """Causal MVN: the running mean over every frame so far takes the
+        place of the utterance mean."""
+        feature = np.log1p(np.abs(block))
+        s = feature.sum(axis=-2)
+        state = {'count': state['count'] + feature.shape[-2],
+                 'sum': s if state['sum'] is None else state['sum'] + s}
+        mean = state['sum'] / max(state['count'], 1)
+        return feature - mean[..., None, :], state
+
 
 class Log1pMaxNormAbsSTFT(STFTFeatures):
     """``log1p(|X| * (e-1) / max|X|)`` in [0, 1]."""
@@ -137,8 +192,33 @@ class Log1pMaxNormAbsSTFT(STFTFeatures):
         norm = torch.amax(s, dim=dims, keepdim=True)
         return torch.log1p(s * ((math.e - 1) / norm))
 
+    # statistics_axis 'f' (each frame's max over frequency) is frame-local;
+    # 'tf' and 't' keep a running max over every frame so far.
+    def init_streaming_state(self):
+        return {'max': None}
+
+    def streaming_feature(self, block, state):
+        s = np.abs(block)
+        if self.statistics_axis == 'f':
+            return _np_feature(self, block), state
+        if self.statistics_axis == 'tf':
+            cur = float(s.max()) if s.size else 0.0
+            prev = state['max'] if state['max'] is not None else 1e-30
+            norm = max(prev, cur, 1e-30)
+        elif self.statistics_axis == 't':
+            cur = (s.max(axis=-2) if s.shape[-2]
+                   else np.zeros(s.shape[-1]))
+            prev = (state['max'] if state['max'] is not None
+                    else np.full(s.shape[-1], 1e-30))
+            norm = np.maximum(np.maximum(prev, cur), 1e-30)
+        else:
+            raise ValueError(self.statistics_axis)
+        return np.log1p(s * ((np.e - 1) / norm)), {'max': norm}
+
 
 class NoFeatureSTFT(STFTFeatures):
+    frame_local = True
+
     def stft_to_feature(self, stft_signals):
         return stft_signals[..., :0]
 
@@ -228,6 +308,13 @@ class Log1pMaxNormAbsIPDSTFT(_IPDPairing, Log1pMaxNormAbsSTFT):
         cos, sin = self._ipd(stft_signals)
         return torch.cat([feat, cos, sin], dim=-1)
 
+    def streaming_feature(self, block, state):
+        # not the max norm's streaming form: it would drop the IPD part,
+        # and the channel pairing may be drawn anew for every call
+        raise NotImplementedError(
+            'IPD extractors sample a random channel pairing per call and '
+            'are not supported in streaming inference.')
+
 
 class MFCC(STFTFeatures):
     """MFCC on the shared STFT (the reference's torchaudio ``TorchMFCC``):
@@ -284,6 +371,25 @@ class MFCC(STFTFeatures):
             mel = amplitude_to_db(mel, top_db=self.top_db)
         return mel @ dct
 
+    def init_streaming_state(self):
+        return {'max_db': None}
+
+    def streaming_feature(self, block, state):
+        """Causal MFCC: the reference of AmplitudeToDB's top-dB clamp is a
+        running max over every frame so far (``log_mels`` is frame-local
+        and exact)."""
+        power = np.abs(block).astype(np.float32) ** 2
+        mel = power @ self.fbank
+        if self.log_mels:
+            return (np.log(mel + 1e-6) @ self.dct_mat), state
+        x_db = 10.0 * np.log10(np.clip(mel, 1e-10, None))
+        cur = float(x_db.max()) if x_db.size else -np.inf
+        prev = state['max_db'] if state['max_db'] is not None else -np.inf
+        mx = max(prev, cur)
+        if np.isfinite(mx):
+            x_db = np.maximum(x_db, mx - self.top_db)
+        return (x_db @ self.dct_mat), {'max_db': mx}
+
 
 #: Name used by the reference's configs.
 TorchMFCC = MFCC
@@ -326,6 +432,16 @@ class ConcatenatedSTFTFeatures(STFTFeatures):
         return torch.cat([self.fe1.stft_to_feature(stft_signals),
                           self.fe2.stft_to_feature(stft_signals)], dim=-1)
 
+    def init_streaming_state(self):
+        return (self.fe1.init_streaming_state(),
+                self.fe2.init_streaming_state())
+
+    def streaming_feature(self, block, state):
+        f1, s1 = self.fe1.streaming_feature(block, state[0])
+        f2, s2 = self.fe2.streaming_feature(block, state[1])
+        return np.concatenate([np.asarray(f1), np.asarray(f2)], axis=-1), \
+            (s1, s2)
+
 
 #: Alias with the reference's (misspelled) class name so its configs load.
 ConcaternatedSTFTFeatures = ConcatenatedSTFTFeatures
@@ -336,22 +452,18 @@ _CLASSES = {cls.__name__: cls for cls in (
     Log1pMaxNormAbsSTFT, NoFeatureSTFT, AbsIPDSTFT, Log1pAbsIPDSTFT,
     Log1pMaxNormAbsIPDSTFT, MFCC, ConcatenatedSTFTFeatures)}
 _CLASSES.update(TorchMFCC=MFCC,
-                ConcaternatedSTFTFeatures=ConcatenatedSTFTFeatures)
-
-#: Waveform feature extractors of the JAX package that are not ported yet.
-_NOT_PORTED = {'KaldiMFCC': 'features/kaldi.py, ROADMAP Queue 1 item 5c'}
+                ConcaternatedSTFTFeatures=ConcatenatedSTFTFeatures,
+                KaldiMFCC=KaldiMFCC)
 
 
 def fe_from_config(config: dict) -> STFTFeatures:
     """A feature extractor from the JAX configuration's form, ``{'factory':
-    name, **kwargs}``, the factory mapped by its class name, completed by
-    ``get_config`` (nested ``fe1``/``fe2`` configurations too) and built by
+    name, **kwargs}``, the factory mapped by its class name (the waveform
+    extractors of ``features/kaldi.py`` too), completed by ``get_config``
+    (nested ``fe1``/``fe2`` configurations too) and built by
     ``from_config``."""
     config = dict(config)
     name = factory_name(config.pop('factory'))
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f'feature extractor {name} is not ported '
-                                  f'yet ({_NOT_PORTED[name]})')
     if name not in _CLASSES:
         raise ValueError(f'unknown feature extractor {name!r}')
     return from_config(get_config(_CLASSES[name], config))

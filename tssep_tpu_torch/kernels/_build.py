@@ -92,11 +92,11 @@ _SIGNATURES = {
                                                 _I, _I, _P],
     'tssep_spill_walk_slots': [_I, _I, _I, _I, _P],
     'tssep_lstm_fwd': [_P, _LL, _LL, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I,
-                       _I, _P],
+                       _I, _P, _P, _P],
     'tssep_lstm_bwd': [_P, _LL, _LL, _P, _P, _P, _P, _LL, _LL, _P, _LL, _LL, _P,
                        _P, _P, _I, _I, _I, _I, _I, _I, _P],
     'tssep_lstm_fwd_cluster': [_P, _LL, _LL, _P, _P, _P, _P, _LL, _LL, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _I, _P],
+                               _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     'tssep_lstm_fwd_slots': [_I, _I, _I, _I, _I, _P],
     'tssep_lstm_bwd_cluster': [_P, _LL, _LL, _P, _P, _P, _P, _LL, _LL, _P, _LL,
                                _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

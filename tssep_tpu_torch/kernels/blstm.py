@@ -31,7 +31,10 @@ One direction: ``lstm_fwd`` replaces ``_fwd_kernel`` (:52, launched by
 ``_core_fwd_impl`` :217) and ``lstm_bwd`` replaces ``_bwd_kernel`` (:82,
 launched by ``_lstm_core_bwd`` :267): one direction's recurrence from gate
 inputs ``xg`` (B, T, 4H) and its backward, dxg and dW_hh; ``reverse=True``
-walks t = T-1 .. 0.
+walks t = T-1 .. 0. ``lstm_fwd`` also starts from a carried state ``h0``,
+``c0`` (B, H), as JAX's streaming scan does (``_lstm_scan``,
+``tssep_tpu/nn/rnnp.py:130``, for ``tssep_tpu/eval/streaming.py``): the
+port's ``eval/streaming.py`` launches it three times a layer and block.
 The CUDA sources, with what bounds each kernel on an H100, are in ``csrc/``.
 
 Every pair has two routes by storage dtype. bfloat16, the one the flagship
@@ -109,18 +112,23 @@ _BIDI = (False, True)
 # ---------------------------------------------------------------------------
 
 def _walk_plain(gates_in, w_hh_t, batch, steps, dtype, with_cell,
-                revs=_BIDI, spill=0):
+                revs=_BIDI, spill=0, state=None):
     """The directions of one layer, ``revs[d]`` True where direction d
     walks t = T-1 .. 0; ``gates_in(*ts)`` gives the input part of the gates,
     (n, B, 4H) float32, of each direction at its time ``ts[d]``. Follows
-    ``tssep_tpu/nn/rnnp.py`` ``_lstm_scan``. Returns ``(h, c)``, each
-    (B, T, nH); with ``spill``, the second is instead the c carry entering
-    every ``spill``'th step of each walk, (n, ceil(T / spill), B, H), in
-    ``dtype`` as the spill forward stores it."""
+    ``tssep_tpu/nn/rnnp.py`` ``_lstm_scan``; ``state``, ``(h0, c0)`` each
+    (n, B, H), is the carry the walks start from (zeros without it).
+    Returns ``(h, c)``, each (B, T, nH); with ``spill``, the second is
+    instead the c carry entering every ``spill``'th step of each walk,
+    (n, ceil(T / spill), B, H), in ``dtype`` as the spill forward stores
+    it."""
     n, H = len(revs), w_hh_t.shape[1]
     whh = w_hh_t.float()
-    h = torch.zeros(n, batch, H, device=w_hh_t.device)
-    c = torch.zeros_like(h)
+    if state is None:
+        h = torch.zeros(n, batch, H, device=w_hh_t.device)
+        c = torch.zeros_like(h)
+    else:
+        h, c = (t.float() for t in state)
     hs = torch.empty(batch, steps, n * H, dtype=dtype, device=w_hh_t.device)
     cs = torch.empty_like(hs) if with_cell else None
     if spill:
@@ -167,11 +175,13 @@ def blstm_fullfused_spill_fwd_plain(x, w_ih_t, w_hh_t, bias, *,
     return h, (cb if with_boundaries else None)
 
 
-def lstm_fwd_plain(xg, w_hh_t, *, reverse=False, with_cell=False):
+def lstm_fwd_plain(xg, w_hh_t, *, reverse=False, with_cell=False, h0=None,
+                   c0=None):
     """Plain version of :func:`lstm_fwd`."""
+    state = None if h0 is None else (h0[None], c0[None])
     return _walk_plain(lambda t: xg[:, t].float()[None], w_hh_t[None],
                        xg.shape[0], xg.shape[1], xg.dtype, with_cell,
-                       revs=(reverse,))
+                       revs=(reverse,), state=state)
 
 
 def _conditioned(xs, aux):
@@ -1561,14 +1571,18 @@ def _check_uni(xg, w_hh_t):
     return B, T, H
 
 
-def lstm_fwd(xg, w_hh_t, *, reverse=False, with_cell=False):
+def lstm_fwd(xg, w_hh_t, *, reverse=False, with_cell=False, h0=None,
+             c0=None):
     """One direction of an LSTM layer from gate inputs (JAX
     ``_core_fwd_impl``).
 
     xg: (B, T, 4H), ``x @ W_ih^T + b`` in original time order, any batch
     and time strides; w_hh_t: (H, 4H), same dtype; ``reverse`` walks
-    t = T-1 .. 0. Returns ``(h, c)``, each (B, T, H) in the storage dtype;
-    ``c`` is None unless ``with_cell``.
+    t = T-1 .. 0. ``h0``, ``c0``: (B, H) in the same dtype, the carry the
+    walk starts from (JAX ``_lstm_scan``'s, a streaming session's state),
+    both or neither; without them it starts from zeros. Returns ``(h, c)``,
+    each (B, T, H) in the storage dtype; ``c`` is None unless
+    ``with_cell``.
 
     On a CUDA device, bfloat16 storage runs the gate-input form of the
     clustered Hopper kernel launched for one direction
@@ -1577,14 +1591,31 @@ def lstm_fwd(xg, w_hh_t, *, reverse=False, with_cell=False):
     checks' mode, runs the first design (``csrc/blstm_common.cuh``).
     """
     B, T, H = _check_uni(xg, w_hh_t)
+    state = _check_state(h0, c0, B, H, xg)
     if xg.device.type == 'cpu':
         return lstm_fwd_plain(xg, w_hh_t, reverse=reverse,
-                              with_cell=with_cell)
+                              with_cell=with_cell, h0=h0, c0=c0)
     route = (_lstm_fwd_cluster if xg.dtype == torch.bfloat16
              else _lstm_fwd_first)
-    out = route(xg, w_hh_t, reverse, with_cell)
+    out = route(xg, w_hh_t, reverse, with_cell, state)
     lstm_fwd.launches += 1
     return out
+
+
+def _check_state(h0, c0, B, H, xg):
+    """The carried state of :func:`lstm_fwd`, contiguous, or None."""
+    if (h0 is None) != (c0 is None):
+        raise ValueError('h0 and c0 go together')
+    if h0 is None:
+        return None
+    _check('h0', h0, (B, H), xg.dtype, xg.device)
+    _check('c0', c0, (B, H), xg.dtype, xg.device)
+    return h0.contiguous(), c0.contiguous()
+
+
+def _state_ptrs(state):
+    return (None, None) if state is None else tuple(t.data_ptr()
+                                                    for t in state)
 
 
 def _uni_outputs(xg, H, with_cell):
@@ -1593,10 +1624,10 @@ def _uni_outputs(xg, H, with_cell):
     return h, (torch.empty_like(h) if with_cell else None)
 
 
-def _lstm_fwd_first(xg, w_hh_t, reverse, with_cell):
+def _lstm_fwd_first(xg, w_hh_t, reverse, with_cell, state=None):
     """The first design of :func:`lstm_fwd` on a CUDA device
     (``csrc/blstm_common.cuh``), in either storage dtype: the route of
-    float32."""
+    float32. ``state``: ``(h0, c0)`` contiguous, or None."""
     B, T, H = xg.shape[0], xg.shape[1], w_hh_t.shape[0]
     bt = _launch_tile(xg, H, 2 * H, (w_hh_t,))
     h, c = _uni_outputs(xg, H, with_cell)
@@ -1605,13 +1636,13 @@ def _lstm_fwd_first(xg, w_hh_t, reverse, with_cell):
             xg.data_ptr(), xg.stride(0), xg.stride(1), w_hh_t.data_ptr(),
             h.data_ptr(), c.data_ptr() if with_cell else None, h.stride(0),
             h.stride(1), B, T, H, int(reverse),
-            int(xg.dtype == torch.bfloat16), bt,
+            int(xg.dtype == torch.bfloat16), bt, *_state_ptrs(state),
             torch.cuda.current_stream(xg.device).cuda_stream)
     _raise_on(err, 'lstm_fwd')
     return h, c
 
 
-def _lstm_fwd_cluster(xg, w_hh_t, reverse, with_cell):
+def _lstm_fwd_cluster(xg, w_hh_t, reverse, with_cell, state=None):
     """The bf16 route of :func:`lstm_fwd` on a CUDA device: the gate-input
     forward on a grid of one direction."""
     B, T, H = xg.shape[0], xg.shape[1], w_hh_t.shape[0]
@@ -1626,6 +1657,7 @@ def _lstm_fwd_cluster(xg, w_hh_t, reverse, with_cell):
             cols.data_ptr(), h.data_ptr(), c.data_ptr() if with_cell else None,
             h.stride(0), h.stride(1), B, T, H, int(reverse), geo.cluster,
             geo.units, geo.active, geo.row_tile, geo.chunk,
+            *_state_ptrs(state),
             torch.cuda.current_stream(xg.device).cuda_stream)
     _raise_on(err, 'lstm_fwd')
     return h, c

@@ -97,6 +97,10 @@ struct FwdArgs {
   // directions of the launch (grid z), and bit d set where direction d
   // walks t = T-1 .. 0: a bidirectional layer 2 and 0b10, one direction 1
   int dirs = 2, rev = 0b10;
+  // the carry each walk starts from, (dirs, B, H) contiguous (a streaming
+  // session's state); null starts from zeros
+  const __nv_bfloat16* h0 = nullptr;
+  const __nv_bfloat16* c0 = nullptr;
 };
 
 constexpr int kFwdRing = 2;          // chunks in the ring
@@ -155,6 +159,15 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 1) cluster_fwd_kernel(const Fw
   const bool active = cta < a.nact;
   for (int i = threadIdx.x; i < BT * HS; i += nthr)  // both halves: h_{-1} = 0 and pads
     reinterpret_cast<uint32_t*>(hbuf)[i] = 0u;
+  if (a.h0 != nullptr) {
+    // h_{-1} of the tile's rows from the carried state, every unit into
+    // this CTA's copy of half 0; pads and rows past B stay zero
+    __syncthreads();
+    for (int i = threadIdx.x; i < BT * a.H; i += nthr) {
+      const int n = i / a.H, k = i - n * a.H;
+      if (b0 + n < a.B) hbuf[n * HS + k] = a.h0[((size_t)dir * a.B + b0 + n) * a.H + k];
+    }
+  }
   if (active) {
     const uint4* src = a.whh + (size_t)(dir * C + cta) * MT * KSH * 32;
     for (int i = threadIdx.x; i < MT * KSH * 32; i += nthr) whh_s[i] = src[i];
@@ -184,18 +197,24 @@ __global__ void __launch_bounds__(kFwdMaxThreads, 1) cluster_fwd_kernel(const Fw
     const uint4* wa = whh_s + (size_t)mt * KSH * 32 + lane;
     // bytes a step's h brings: every group of 4 units, BT rows, 8 bytes each
     const uint32_t hbytes = (uint32_t)((a.H + 3) / 4) * BT * 8;
+    // c of unit u, row nb 8 + 2 tq + hi: zero, or the carried state
     float creg[NB];
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) creg[nb] = 0.f;
+    for (int nb = 0; nb < NB; ++nb) {
+      const int b = b0 + nb * 8 + 2 * tq + (hi ? 1 : 0);
+      creg[nb] = (a.c0 != nullptr && u < a.H && b < a.B)
+                     ? __bfloat162float(a.c0[((size_t)dir * a.B + b) * a.H + u])
+                     : 0.f;
+    }
     // spill form: slot k of cb is c after walk step k spill - 1 (slot 0 the
-    // zero state), each (unit, row) written by the lane that updates it
+    // initial state), each (unit, row) written by the lane that updates it
     const int nblk = a.cb != nullptr ? (a.T + a.spill - 1) / a.spill : 0;
     __nv_bfloat16* cbd = a.cb + (size_t)dir * nblk * a.B * a.H;
     if (a.cb != nullptr && u < a.H) {
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
         const int b = b0 + nb * 8 + 2 * tq + (hi ? 1 : 0);
-        if (b < a.B) cbd[(size_t)b * a.H + u] = __float2bfloat16(0.f);
+        if (b < a.B) cbd[(size_t)b * a.H + u] = __float2bfloat16(creg[nb]);
       }
     }
 
@@ -487,11 +506,13 @@ inline int cluster_fwd(const FwdArgs& a, int C, int BT, int TC, cudaStream_t str
 // (xg_sb, xg_st, 1), direction d's gates in columns [4H d, 4H (d + 1));
 // whh_p and cols as blstm_bidi_fwd.cu's entry point documents them, for
 // `dirs` directions; h_out, c_out (B, T, dirs H) with strides (o_sb, o_st,
-// 1), c_out may be null. Returns a cudaError_t.
+// 1), c_out may be null; h0, c0 (dirs, B, H) bf16 contiguous, the carry the
+// walks start from, or null for zeros. Returns a cudaError_t.
 inline int gate_input_fwd(const void* xg, long long xg_sb, long long xg_st, const void* whh_p,
                           const void* cols, void* h_out, void* c_out, long long o_sb,
                           long long o_st, int B, int T, int H, int dirs, int rev, int C, int U,
-                          int nact, int bt, int tc, cudaStream_t stream) {
+                          int nact, int bt, int tc, cudaStream_t stream,
+                          const void* h0 = nullptr, const void* c0 = nullptr) {
   FwdArgs a;
   a.x = static_cast<const __nv_bfloat16*>(xg);
   a.x_sb = xg_sb;
@@ -517,6 +538,8 @@ inline int gate_input_fwd(const void* xg, long long xg_sb, long long xg_st, cons
   a.KX = 0;
   a.dirs = dirs;
   a.rev = rev;
+  a.h0 = static_cast<const __nv_bfloat16*>(h0);
+  a.c0 = static_cast<const __nv_bfloat16*>(c0);
   return cluster_fwd<true>(a, C, bt, tc, stream);
 }
 

@@ -113,7 +113,10 @@ __device__ __forceinline__ void accumulate(float (&acc)[4][BT], const float* src
 //        (1, H, 4H) and outputs (B, T, H); rev0 = 1 walks it in reverse.
 // Spill:  cb_out (ndir, ceil(steps / spill), B, H), contiguous, receives the
 //        c carry entering every spill'th step of each walk, rounded to T
-//        (slot 0 is the zero state); null writes none.
+//        (slot 0 is the initial state); null writes none.
+// State:  h0, c0 (ndir, B, H), contiguous, in T: the carry each walk starts
+//        from (a streaming session's state, JAX `_lstm_scan`'s h0, c0); null
+//        starts from zeros, the launch of every layer that is not streamed.
 template <typename T, int BT, bool FUSED, bool COND>
 __global__ void __launch_bounds__(512)
 blstm_fwd_kernel(const T* __restrict__ in, long long in_sb, long long in_st, int F,
@@ -121,7 +124,8 @@ blstm_fwd_kernel(const T* __restrict__ in, long long in_sb, long long in_st, int
                  const float* __restrict__ bias,
                  const T* __restrict__ w_hh_t, T* __restrict__ h_out, T* __restrict__ c_out,
                  long long out_sb, long long out_st, int B, int steps, int H, int rev0,
-                 T* __restrict__ cb_out, int spill) {
+                 T* __restrict__ cb_out, int spill, const T* __restrict__ h0,
+                 const T* __restrict__ c0) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* h_s = smem;            // (H, BT): h of the previous step, rounded to T
@@ -137,6 +141,16 @@ blstm_fwd_kernel(const T* __restrict__ in, long long in_sb, long long in_st, int
   const T* whh = w_hh_t + (size_t)dir * H * G + j;
 
   for (int i = threadIdx.x; i < 2 * H * BT; i += blockDim.x) smem[i] = 0.f;
+  if (h0 != nullptr) {
+    __syncthreads();  // the zeros are in place; rows past B keep them
+    for (int i = threadIdx.x; i < H * BT; i += blockDim.x) {
+      const int k = i / BT, b = b0 + i - k * BT;
+      if (b < B) {
+        h_s[i] = to_f32(h0[((size_t)dir * B + b) * H + k]);
+        c_s[i] = to_f32(c0[((size_t)dir * B + b) * H + k]);
+      }
+    }
+  }
 
   for (int s = 0; s < steps; ++s) {
     const int t = rev ? steps - 1 - s : s;
@@ -202,7 +216,7 @@ template <typename T, int BT, bool FUSED, bool COND>
 int launch(const void* in, long long in_sb, long long in_st, int F, const void* aux, int S,
            const void* w_ih_t, const void* bias, const void* w_hh_t, void* h_out, void* c_out,
            long long out_sb, long long out_st, int B, int steps, int H, void* stream, int ndir,
-           int rev0, void* cb_out, int spill) {
+           int rev0, void* cb_out, int spill, const void* h0, const void* c0) {
   const dim3 grid((B + BT - 1) / BT, ndir);
   const int threads = ((H + 31) / 32) * 32;
   const size_t smem = sizeof(float) * BT * (2 * H + (FUSED ? F : 0));
@@ -214,23 +228,24 @@ int launch(const void* in, long long in_sb, long long in_st, int F, const void* 
       static_cast<const T*>(in), in_sb, in_st, F, static_cast<const T*>(aux), S,
       static_cast<const T*>(w_ih_t), static_cast<const float*>(bias),
       static_cast<const T*>(w_hh_t), static_cast<T*>(h_out), static_cast<T*>(c_out), out_sb,
-      out_st, B, steps, H, rev0, static_cast<T*>(cb_out), spill);
+      out_st, B, steps, H, rev0, static_cast<T*>(cb_out), spill, static_cast<const T*>(h0),
+      static_cast<const T*>(c0));
   return (int)cudaGetLastError();
 }
 
 // Picks the storage type (0 float, 1 bf16) and the tile height (4 or 16).
-// Both directions unless ndir is 1 (then rev0 picks the direction); cb_out
-// and spill as for blstm_fwd_kernel.
+// Both directions unless ndir is 1 (then rev0 picks the direction); cb_out,
+// spill, h0 and c0 as for blstm_fwd_kernel.
 template <bool FUSED, bool COND>
 int dispatch(int bf16, int bt, const void* in, long long in_sb, long long in_st, int F,
              const void* aux, int S, const void* w_ih_t, const void* bias, const void* w_hh_t,
              void* h_out, void* c_out, long long out_sb, long long out_st, int B, int steps,
              int H, void* stream, int ndir = 2, int rev0 = 0, void* cb_out = nullptr,
-             int spill = 1) {
+             int spill = 1, const void* h0 = nullptr, const void* c0 = nullptr) {
 #define TSSEP_LAUNCH(T, BT)                                                                 \
   return launch<T, BT, FUSED, COND>(in, in_sb, in_st, F, aux, S, w_ih_t, bias, w_hh_t, h_out, \
                                     c_out, out_sb, out_st, B, steps, H, stream, ndir, rev0,   \
-                                    cb_out, spill)
+                                    cb_out, spill, h0, c0)
   if (bf16) {
     if (bt == 16) TSSEP_LAUNCH(__nv_bfloat16, 16);
     if (bt == 4) TSSEP_LAUNCH(__nv_bfloat16, 4);

@@ -24,7 +24,9 @@ SpeakerBeam-style ``AuxNet`` with its masked mean over the aux frames) or an
 ``pre_net`` (``nn/norm.py``), all in float32.
 
 From ``pre_net`` on, activations are kept in the storage dtype; the head and
-its outputs are float32.
+its outputs are in ``head_dtype``: float32 by default, bfloat16 as JAX's
+``TSSEP_HEAD_BF16=1`` (``tssep_tpu/nn/estimator.py:124-131``) casts them, the
+mode the flagship's benchmark and the simulated recipe run in.
 """
 
 from __future__ import annotations
@@ -169,8 +171,9 @@ class MaskEstimator(nn.Module):
                  output_resolution='tf', random_speaker_order=True,
                  num_averaged_permutations=1, input_normalizer=None,
                  aux_normalizer=None, explicit_vad=False,
-                 storage_dtype=torch.bfloat16, cond_fuse=False, fullfuse=True,
-                 spill=False, bidi=True, device='cuda'):
+                 storage_dtype=torch.bfloat16, head_dtype=torch.float32,
+                 cond_fuse=False, fullfuse=True, spill=False, bidi=True,
+                 device='cuda'):
         super().__init__()
         device = resolve_device(device)
         if isinstance(aux_net, dict):
@@ -200,6 +203,7 @@ class MaskEstimator(nn.Module):
         self.explicit_vad = explicit_vad
         self.aux_net_output_size = aux_net_output_size
         self.storage_dtype = storage_dtype
+        self.head_dtype = head_dtype
         self.dropout = dropout
         self.ts_factor = int(ts_vad) if ts_vad else 1
         self.num_averaged_permutations = num_averaged_permutations
@@ -270,8 +274,9 @@ class MaskEstimator(nn.Module):
                 and self.post_net.birnn0.elayers == 1)
 
     def reshape_head(self, logit, S, T):
-        """Post-net linear output -> (B', S, nmask, T, Fh), float32."""
-        logit = logit.float()
+        """Post-net linear output -> (B', S, nmask, T, Fh) in
+        ``head_dtype``."""
+        logit = logit.to(self.head_dtype)
         B, M = logit.shape[0], self.nmask
         if self.output_resolution == 'tf':
             Fh = self.odim + int(self.explicit_vad)

@@ -147,17 +147,31 @@ class STFT:
         segs = np.lib.stride_tricks.as_strided(x, shape=shape, strides=strides)
         return np.fft.rfft(segs * self.analysis_window, n=self.size, axis=-1)
 
-    def istft(self, stft_signal, num_samples: int | None = None):
+    def istft(self, stft_signal, num_samples: int | None = None,
+              segment_dtype=None):
         """Inverse of :meth:`stft`. ``stft_signal`` is a complex tensor or a
-        ``(re, im)`` pair of real ones (``Masking.re_im``)."""
+        ``(re, im)`` pair of real ones (``Masking.re_im``).
+
+        ``segment_dtype`` bfloat16 is the training loss's synthesis under
+        JAX's ``TSSEP_HEAD_BF16`` (``tssep_tpu/signal/stft.py:304-309``):
+        the inputs and the windowed segments are rounded to bfloat16, and so
+        is the waveform; the overlap-add sums in float32."""
         if isinstance(stft_signal, tuple):
             re, im = stft_signal
+            if segment_dtype is not None:
+                re, im = re.to(segment_dtype), im.to(segment_dtype)
             stft_signal = torch.complex(re.float(), im.float())
+        elif segment_dtype is not None:
+            stft_signal = torch.complex(
+                stft_signal.real.to(segment_dtype).float(),
+                stft_signal.imag.to(segment_dtype).float())
         frames = stft_signal.shape[-2]
         segs = torch.fft.irfft(stft_signal, n=self.size,
                                dim=-1)[..., :self.window_length]
         segs = segs * torch.as_tensor(self.synthesis_window, dtype=segs.dtype,
                                       device=segs.device)
+        if segment_dtype is not None:
+            segs = segs.to(segment_dtype).float()
         total = (frames - 1) * self.shift + self.window_length
         lead = segs.shape[:-2]
         out = F.fold(segs.reshape(-1, frames, self.window_length)
@@ -165,6 +179,8 @@ class STFT:
                      output_size=(1, total), kernel_size=(1, self.window_length),
                      stride=(1, self.shift))
         out = out.reshape(lead + (total,))
+        if segment_dtype is not None:
+            out = out.to(segment_dtype)
         start = self.fading_pad
         if num_samples is not None:
             return out[..., start:start + num_samples]

@@ -80,8 +80,11 @@ def _identity(ex):
 
 
 def _host(x):
-    """A tensor (or array) as a numpy array."""
+    """A tensor (or array) as a numpy array; bfloat16, which numpy lacks,
+    as float32."""
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.float()
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
@@ -129,8 +132,8 @@ class Model(nn.Module, Configurable):
 
     @classmethod
     def from_config(cls, config: dict, *, storage_dtype=torch.bfloat16,
-                    device='cuda', cond_fuse=False, fullfuse=True,
-                    spill=False, bidi=True):
+                    head_dtype=torch.float32, device='cuda', cond_fuse=False,
+                    fullfuse=True, spill=False, bidi=True):
         """Build from a config of the JAX package's form (the flagship of
         ``bench.py:98-106``, a recipe's ``eg.trainer.model``): the complete
         configuration (``get_config``: ``fe`` without another factory takes
@@ -149,7 +152,12 @@ class Model(nn.Module, Configurable):
         for the backward instead of the c sequence; ``bidi=False`` runs
         each direction of a layer that takes gate inputs on its own. None
         changes the parameters, so the same named arrays load
-        (``compat/from_jax.py``) whatever the switches."""
+        (``compat/from_jax.py``) whatever the switches.
+
+        ``head_dtype`` bfloat16 is JAX's ``TSSEP_HEAD_BF16=1``: the head's
+        logits and masks in bfloat16 (``MaskEstimator``), and the forward's
+        synthesis of the waveforms from bfloat16 segments
+        (``STFT.istft``); the losses take float32."""
         device = resolve_device(device)
         config = dict(config)
         factory = import_class(config.pop('factory', cls))
@@ -160,7 +168,8 @@ class Model(nn.Module, Configurable):
         if unknown:
             raise ValueError(f'unknown config keys {sorted(unknown)}')
         return from_config(get_config(factory, config),
-                           storage_dtype=storage_dtype, device=device,
+                           storage_dtype=storage_dtype,
+                           head_dtype=head_dtype, device=device,
                            cond_fuse=cond_fuse, fullfuse=fullfuse,
                            spill=spill, bidi=bidi)
 
@@ -190,8 +199,12 @@ class Model(nn.Module, Configurable):
         reads, where the loss wants it and ``ex`` lacks it
         (``tssep_tpu/tasks/model.py:122-134``)."""
         if 'Vad' in self.loss.targets() and 'Vad' not in ex and 'vad' in ex:
-            frames = stft_vad(np.asarray(ex['vad']), self.fe.window_length,
-                              self.fe.shift, self.fe.fading)
+            if hasattr(self.fe, 'sample_vad_to_frame_vad'):
+                # waveform extractors (KaldiMFCC) frame the samples their way
+                frames = self.fe.sample_vad_to_frame_vad(np.asarray(ex['vad']))
+            else:
+                frames = stft_vad(np.asarray(ex['vad']), self.fe.window_length,
+                                  self.fe.shift, self.fe.fading)
             ex['Vad'] = np.asarray(frames, dtype=np.float32)
         return ex
 
@@ -401,7 +414,9 @@ class Model(nn.Module, Configurable):
     def _features(self, ex: dict) -> dict:
         """``ex`` with ``Input``, the features, made from what it brings:
         ``Input`` as it is, else from ``Observation``, else from
-        ``observation``'s STFT (``tssep_tpu/tasks/model.py:343-358``)."""
+        ``observation``'s STFT, or from its reference channel's samples
+        where the feature extractor takes waveforms
+        (``tssep_tpu/tasks/model.py:343-358``)."""
         ref = ex['reference_channel']
         if 'Input' in ex:
             ex['Input'] = self._tensor(ex['Input'])
@@ -411,10 +426,11 @@ class Model(nn.Module, Configurable):
             return ex
         if 'Observation' not in ex:
             if not hasattr(self.fe, 'stft'):
-                raise NotImplementedError(
-                    'waveform feature extractors (KaldiMFCC, '
-                    'features/kaldi.py) are not ported yet: ROADMAP Queue 1 '
-                    'item 5c')
+                # a waveform feature extractor (KaldiMFCC): the Kaldi-input
+                # TS-VAD path (reference model.py:510-513), no estimate
+                ex['Input'] = self.fe(
+                    self._tensor(ex['observation'])[..., ref, :]).float()
+                return ex
             ex['Observation'] = self.fe.stft(self._tensor(ex['observation']))
         else:
             ex['Observation'] = self._tensor(ex['Observation'],
@@ -456,9 +472,11 @@ class Model(nn.Module, Configurable):
             if 'time_estimate' in wanted and 'observation' in ex:
                 estimate = (out.stft_estimate if re_im is None
                             else re_im(me_out.mask, ex))
+                head = self.mask_estimator.head_dtype
                 if estimate is not None:
                     out.time_estimate = self.fe.istft(
-                        estimate, num_samples=ex['observation'].shape[-1])
+                        estimate, num_samples=ex['observation'].shape[-1],
+                        segment_dtype=None if head == torch.float32 else head)
             return out
 
     def review_loss(self, ex: dict, out: ForwardOutput):
@@ -530,6 +548,8 @@ class Model(nn.Module, Configurable):
             vad = first(ex['Vad']) if 'Vad' in ex else None  # (spk, frames)
             for s in range(min(mask.shape[0], max_speakers)):
                 m = mask[s].reshape((-1,) + mask.shape[-2:])[0]  # (T, F)
+                if m.ndim == 1:   # 't' resolution: per-frame activity
+                    m = m[:, None]
                 img = m
                 if vad is not None and vad.shape[-1] == m.shape[0]:
                     # VAD-target stripe composited next to the mask

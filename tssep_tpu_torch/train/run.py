@@ -13,8 +13,9 @@ raises on a host without CUDA otherwise; the storage type follows
 ``TSSEP_COMPUTE_DTYPE`` (default float32, ``tssep_tpu/nn/estimator.py:
 121-122``); the kernel switches follow ``TSSEP_PALLAS_CONDFUSE`` (default
 off), ``TSSEP_PALLAS_FULLFUSE`` (on), ``TSSEP_PALLAS_SPILL`` (off) and
-``TSSEP_PALLAS_BIDI`` (on), as the JAX package reads them. None of these is
-part of ``config.yaml``.
+``TSSEP_PALLAS_BIDI`` (on), as the JAX package reads them, and the head's
+type ``TSSEP_HEAD_BF16`` (default off: float32; ``tssep_tpu/nn/estimator.py:
+130``). None of these is part of ``config.yaml``.
 """
 
 from __future__ import annotations
@@ -81,8 +82,9 @@ def parse_argv(argv):
 
 def runtime_options(argv=(), environ=None) -> dict:
     """The port-only options of a run: ``device`` (the card, or the CPU
-    with ``--cpu``), ``storage_dtype`` and the kernel switches from the
-    environment. Raises on a host without CUDA unless ``--cpu``."""
+    with ``--cpu``), ``storage_dtype``, ``head_dtype`` and the kernel
+    switches from the environment. Raises on a host without CUDA unless
+    ``--cpu``."""
     environ = os.environ if environ is None else environ
     if '--cpu' in argv:
         device = torch.device('cpu')
@@ -95,7 +97,9 @@ def runtime_options(argv=(), environ=None) -> dict:
     if dtype not in _STORAGE:
         raise ValueError(f'TSSEP_COMPUTE_DTYPE={dtype!r}: one of '
                          f'{sorted(_STORAGE)}')
+    head = environ.get('TSSEP_HEAD_BF16', '0') != '0'
     return {'device': device, 'storage_dtype': _STORAGE[dtype],
+            'head_dtype': torch.bfloat16 if head else torch.float32,
             **{name: environ.get(var, default) != '0'
                for name, (var, default) in _SWITCHES.items()}}
 
