@@ -151,7 +151,22 @@ Phases, each of which must pass:
     against the plain versions in bf16 and f32. The kernels phase holds
     ``lstm_fwd`` from a nonzero carried state against its plain version at
     the session's shapes (rows 1 and 8, T 12, 50 and 62), in f32 and bf16,
-    beside cuDNN's LSTM from the same state.
+    beside cuDNN's LSTM from the same state;
+23. distributed: data parallelism on ``torch.distributed``
+    (``tssep_tpu_torch/dist``) at the flagship's width (bf16, bf16 head),
+    batch 16 on the simulator's batches. (a) One NCCL rank in this process:
+    ``Trainer(mesh={'data': 1})`` trains 3 steps through the kernels (the
+    launch counts) and equals the run without a mesh bit for bit; (b) two
+    ranks share the card (the spawn method, gloo: NCCL takes one rank a
+    device), each with its 8 rows of every global batch of 16, equal the
+    same two batches of 8 run in one process bit for bit, and agree with
+    the one-process run at batch 16 (bf16: losses at rtol 1e-3, parameters
+    at JAX's rtol 2e-2 / atol 3e-3); (c) the two ranks deal the chunks of
+    a 20 s recording's forward calls over themselves and return the masks
+    of ``mesh=None``, and calibrate with half a calibration set each to
+    the threshold of one process on all of it. With the card's name and
+    power limit: ms a step for one and for two ranks, ms of the gradient
+    all-reduce (NCCL, one rank; gloo, through the host), peak MiB per rank.
 
 The flagship's phases run it as ``bench.py`` does: in bfloat16 with the
 bfloat16 head (``TSSEP_HEAD_BF16=1``), in float32 with the float32 head;
@@ -493,12 +508,16 @@ def bound(flops, nbytes, dtype):
             'operations' if t_ops >= t_bytes else 'bytes')
 
 
-def phase_device():
-    out = subprocess.run(
+def _card():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
-    log(f'card: {out}')
+
+
+def phase_device():
+    log(f'card: {_card()}')
     check(torch.cuda.device_count() >= 1, 'a CUDA device')
 
 
@@ -2941,6 +2960,376 @@ def phase_serving_streaming():
             'kaldi': kaldi}
 
 
+#: The distributed phase: 2 ranks share the card (gloo: NCCL refuses two
+#: ranks on one device), each with half of the batch-16 global batch.
+DIST_RANKS = 2
+#: Seconds: a collective that waits longer raises; ranks that take longer
+#: are killed.
+DIST_COLLECTIVE_TIMEOUT, DIST_DEADLINE = 300, 600
+#: The chunk-sharded eval's recording (1 channel) and the calibration set.
+DIST_EVAL_SECONDS, DIST_CALIBRATION = 20, 8
+#: 2 ranks against one process. Against the same computation in one
+#: process (each global batch as the ranks' two batches of 8, their flat
+#: gradient buffers added): bit for bit, a sum of two terms being the same
+#: in either order. Against the one-process run at batch 16: losses at rtol
+#: 1e-3 in bf16 (JAX's 1e-5, ``tests/test_multihost.py:90-103``, holds in
+#: f32: at 8 rows the GEMMs and the kernels tile otherwise than at 16, so
+#: the bf16 activations round otherwise, ~4e-5 of a loss on the card, well
+#: under bf16's 2^-8), parameters at JAX's rtol 2e-2 and atol 3e-3 (Adam's
+#: 1/sqrt(v) turns a near-zero gradient's rounding into a step of lr).
+DIST_LOSS_RTOL, DIST_PARAM_RTOL, DIST_PARAM_ATOL = 1e-3, 2e-2, 3e-3
+DIST_PER_STEP = {'blstm_fullfused_fwd': 3, 'blstm_bidi_fwd': 1,
+                 'blstm_fullfused_bwd': 3, 'blstm_bidi_bwd': 1}
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _dist_data(model, shard=None):
+    sim = DeviceMeetingSimulator(duration=SAMPLES / 16000,
+                                 num_speakers=SPEAKERS, aux_size=BINS)
+    return DeviceSimDataset(sim, TRAIN_BATCH, seed=2,
+                            targets=model.loss.device_targets() | {'Vad'},
+                            device='cuda', shard=shard)
+
+
+def _dist_trainer(model, mesh=None):
+    return Trainer(model, None, optimizer=Adam(gradient_clipping=10,
+                                               lr=1e-3), seed=0, mesh=mesh)
+
+
+def _grad_buffer(trainer):
+    """A buffer of the size the step all-reduces: every gradient and the
+    loss, float32."""
+    return torch.zeros(sum(p.numel() for p in trainer.optimizer.params) + 1,
+                       device='cuda')
+
+
+def _host_ms(fn, reps):
+    """ms of ``fn`` (which ends in a synchronize) by the host's clock,
+    after one warm-up call: the median and every call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t))
+    return statistics.median(times), times
+
+
+def _dist_recording():
+    ex = dummy_example(1, 16_000 * DIST_EVAL_SECONDS, SPEAKERS, 1,
+                       aux_size=BINS)
+    return ex['audio_data']['observation'], ex['auxInput']
+
+
+def _calibration_set():
+    rng = np.random.default_rng(0)
+    refs = [rng.random((SPEAKERS, 400)) > 0.7
+            for _ in range(DIST_CALIBRATION)]
+    acts = [0.25 + 0.2 * r + 0.05 * rng.standard_normal(r.shape)
+            for r in refs]
+    return acts, refs
+
+
+def _dist_chunked(model, mesh=None):
+    """The chunked masks and activity of the recording, with the launch
+    counts set to 0 just before; (masks, activity, launches)."""
+    obs, aux = _dist_recording()
+    chunked = eval_driver.ChunkedMaskEstimator(
+        model, chunk_frames=EVAL_CHUNK, hop_frames=EVAL_HOP, mesh=mesh)
+    stft = eval_driver.EvalDriver(model).stft(obs)
+    _reset_launches()
+    masks, activity = chunked(stft, aux)
+    torch.cuda.synchronize()
+    return masks, activity, _launches()
+
+
+def _dist_rank(rank, port, out_dir):
+    """One of ``DIST_RANKS`` processes sharing the card: trains its half of
+    each batch-16 step for ``TRAIN_STEPS`` steps (the launch counts set to
+    0 just before), times further steps and the gradient all-reduce, runs
+    its chunks of the recording's forward calls and its share of the
+    calibration; writes what it found to ``<out_dir>/rank<rank>.pt``."""
+    from tssep_tpu_torch.dist import mesh as mesh_lib
+    from tssep_tpu_torch.dist import multihost
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(f'127.0.0.1:{port}', DIST_RANKS, rank,
+                         backend='gloo', timeout=DIST_COLLECTIVE_TIMEOUT)
+    out = {'backend': multihost.backend(), 'world': multihost.process_count()}
+    model = _flagship()
+    trainer = _dist_trainer(model, {'data': DIST_RANKS})
+    trainer.ensure_init()
+    data = _dist_data(model, trainer.mesh.shard)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    out['losses'] = trainer.train_steps(data, TRAIN_STEPS)
+    out['launches'] = _launches()
+    out['peak_mib'] = torch.cuda.max_memory_allocated() / 2 ** 20
+    if rank == 0:
+        out['params'] = {k: v.detach().float().cpu().clone() for k, v in
+                         model.state_dict().items()}
+    out['local_batch'] = next(iter(data))['observation'].shape[0]
+    steps = iter(data)
+
+    def step():
+        trainer.train_step(next(steps))
+        torch.cuda.synchronize()
+    out['step_ms'] = _host_ms(step, TRAIN_STEPS)
+    buf = _grad_buffer(trainer)
+
+    def reduce():
+        multihost.all_reduce(buf)
+        torch.cuda.synchronize()
+    out['allreduce_ms'] = _host_ms(reduce, 10)
+    out['allreduce_mib'] = buf.numel() * 4 / 2 ** 20
+    mesh = mesh_lib.make_mesh()
+    out['chunked'] = _dist_chunked(_flagship(), mesh)
+    acts, refs = _calibration_set()
+    out['calibration'] = eval_driver.calibrate_threshold(
+        acts[rank::DIST_RANKS], refs[rank::DIST_RANKS])
+    torch.save(out, Path(out_dir) / f'rank{rank}.pt')
+    torch.distributed.destroy_process_group()
+
+
+def _spawn_ranks(out_dir):
+    """Starts ``DIST_RANKS`` processes (the spawn method) on ``_dist_rank``
+    and waits for them; a failing rank takes the others down, late ranks
+    are killed."""
+    import torch.multiprocessing as mp
+    context = mp.start_processes(
+        _dist_rank, args=(_free_port(), str(out_dir)), nprocs=DIST_RANKS,
+        join=False, start_method='spawn')
+    deadline = time.monotonic() + DIST_DEADLINE
+    try:
+        while not context.join(timeout=1):
+            check(time.monotonic() < deadline,
+                  f'distributed: ranks still running after {DIST_DEADLINE} s')
+    finally:
+        for p in context.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    return [torch.load(Path(out_dir) / f'rank{r}.pt', weights_only=False)
+            for r in range(DIST_RANKS)]
+
+
+def _shards_in_one_process():
+    """(b)'s computation without a collective: each global batch of 16
+    as the ranks' two batches of 8 with their rows' draws, each's
+    gradients and loss flattened as the trainer flattens them and summed,
+    one clipped Adam update; (losses, parameters)."""
+    from tssep_tpu_torch.dist.mesh import RowShard
+    from tssep_tpu_torch.train.trainer import step_generator
+    model = _flagship()
+    trainer = _dist_trainer(model)
+    shards = [RowShard(r, DIST_RANKS) for r in range(DIST_RANKS)]
+    batches = [iter(_dist_data(model, shard)) for shard in shards]
+    local = TRAIN_BATCH // DIST_RANKS
+    losses = []
+    for step in range(TRAIN_STEPS):
+        total = None
+        for shard, data in zip(shards, batches):
+            trainer.optimizer.zero_grad()
+            gen = step_generator('cuda', trainer.seed, step, 0, shard=shard,
+                                 examples=local)
+            loss, _ = model.loss_fn(next(data), gen, training=True)
+            loss.backward()
+            grads = [p.grad for p in trainer.optimizer.params
+                     if p.grad is not None]
+            flat = torch.cat([g.reshape(-1).float() for g in grads]
+                             + [loss.detach().reshape(1).float()])
+            total = flat if total is None else total + flat
+        with torch.no_grad():
+            for g, value in zip(grads, total.split(
+                    [g.numel() for g in grads] + [1])):
+                g.copy_(value.view_as(g))
+        trainer.optimizer.step()
+        losses.append(total[-1].item())
+    return losses, {k: v.detach().clone() for k, v in
+                    model.state_dict().items()}
+
+
+def _param_err(got, want):
+    """(max abs err, max err over rtol * |want| + atol) of two state
+    dicts."""
+    abs_err, ratio = 0.0, 0.0
+    for k, w in want.items():
+        w = w.float().cpu()
+        d = (got[k].float().cpu() - w).abs()
+        abs_err = max(abs_err, d.max().item())
+        ratio = max(ratio, (d / (DIST_PARAM_RTOL * w.abs()
+                                 + DIST_PARAM_ATOL)).max().item())
+    return abs_err, ratio
+
+
+def phase_distributed():
+    """Data parallelism through ``torch.distributed`` at the flagship's
+    width (bf16, bf16 head), batch 16. (a) One NCCL rank in this process:
+    ``Trainer(mesh={'data': 1})`` trains 3 steps through the kernels (the
+    launch counts) against the run without a mesh on the same batches,
+    bit for bit; ms a step, ms of the gradient all-reduce, peak MiB. (b)
+    Two ranks share the card (gloo), each with its 8 rows of each global
+    batch of 16: bit for bit the same two batches of 8 in one process, and
+    against the one-process run at batch 16 at ``DIST_LOSS_RTOL`` and
+    JAX's parameter bounds; ms a step, ms of the all-reduce, peak MiB per
+    rank. (c)
+    The chunk-sharded eval of a 20 s recording on the two ranks against
+    ``mesh=None``, and the calibration with half the set on each against
+    one process on all of it."""
+    from tssep_tpu_torch.dist import multihost
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = _card()
+
+    # the reference: one process, no mesh
+    ref_model = _flagship()
+    ref = _dist_trainer(ref_model)
+    ref_losses = ref.train_steps(_dist_data(ref_model), TRAIN_STEPS)
+    ref_params = {k: v.detach().clone() for k, v in
+                  ref_model.state_dict().items()}
+    split_losses, split_params = _shards_in_one_process()
+
+    # (a) one NCCL rank
+    multihost.initialize(f'127.0.0.1:{_free_port()}', 1, 0, backend='nccl',
+                         timeout=DIST_COLLECTIVE_TIMEOUT)
+    check(multihost.backend() == 'nccl', 'distributed: an NCCL group')
+    model = _flagship()
+    trainer = _dist_trainer(model, {'data': 1})
+    trainer.ensure_init()
+    data = _dist_data(model, trainer.mesh.shard)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    losses = trainer.train_steps(data, TRAIN_STEPS)
+    launches = _launches()
+    peak_one = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(launches == _expect(DIST_PER_STEP, TRAIN_STEPS),
+          f'distributed 1 rank: per step {DIST_PER_STEP}, got {launches}')
+    bits = losses == ref_losses and all(
+        torch.equal(v, ref_params[k]) for k, v in model.state_dict().items())
+    one_err = _param_err(model.state_dict(), ref_params)
+    log(f'distributed 1 rank (NCCL, mesh data 1), bf16, {_head(model)}: '
+        f'losses {losses} against {ref_losses} without a mesh; bit for bit: '
+        f'{bits}; parameters max abs err {one_err[0]:.3g}; launches '
+        f'{launches}')
+    check(bits, 'distributed 1 rank: the run without a mesh, bit for bit')
+    steps = iter(data)
+
+    def step():
+        trainer.train_step(next(steps))
+        torch.cuda.synchronize()
+    step_one = _host_ms(step, TRAIN_STEPS)
+    buf = _grad_buffer(trainer)
+    nccl_ms = cuda_ms(lambda: multihost.all_reduce(buf), reps=10)
+    torch.distributed.destroy_process_group()
+    del trainer, model, ref, ref_model, data, steps
+    torch.cuda.empty_cache()
+
+    # (c)'s references, before the ranks share the card
+    eval_model = _flagship()
+    want_masks, want_activity, _ = _dist_chunked(eval_model)
+    del eval_model
+    acts, refs = _calibration_set()
+    want_calibration = eval_driver.calibrate_threshold(acts, refs)
+
+    # (b) and (c): two ranks
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='tssep_dist_') as tmp:
+        ranks = _spawn_ranks(tmp)
+    wall = time.perf_counter() - t0
+    for r, got in enumerate(ranks):
+        check((got['backend'], got['world']) == ('gloo', DIST_RANKS),
+              f'distributed rank {r}: {got["backend"]}, {got["world"]}')
+        check(got['local_batch'] == TRAIN_BATCH // DIST_RANKS,
+              f'distributed rank {r}: local batch {got["local_batch"]}')
+        check(got['launches'] == _expect(DIST_PER_STEP, TRAIN_STEPS),
+              f'distributed rank {r}: launches {got["launches"]}')
+        check(got['losses'] == ranks[0]['losses'],
+              f'distributed rank {r}: the losses of rank 0')
+    split_bits = ranks[0]['losses'] == split_losses and all(
+        torch.equal(ranks[0]['params'][k], v.float().cpu())
+        for k, v in split_params.items())
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(ranks[0]['losses'], ref_losses))
+    abs_err, ratio = _param_err(ranks[0]['params'], ref_params)
+    split_loss_err = max(abs(a - b) / abs(b) for a, b in
+                         zip(split_losses, ref_losses))
+    split_abs_err, _ = _param_err(split_params, ref_params)
+    log(f'distributed {DIST_RANKS} ranks (gloo, one card), batch '
+        f'{TRAIN_BATCH // DIST_RANKS} each of {TRAIN_BATCH}: losses '
+        f'{ranks[0]["losses"]}; bit for bit the same shards in one process '
+        f'({split_losses}): {split_bits}; against batch {TRAIN_BATCH} in one '
+        f'process ({ref_losses}): max rel err {loss_err:.3g} (rtol '
+        f'{DIST_LOSS_RTOL}), parameters max abs err {abs_err:.3g}, max err '
+        f'/ (rtol |p| + atol) {ratio:.3g} (rtol {DIST_PARAM_RTOL}, atol '
+        f'{DIST_PARAM_ATOL}); the shards in one process against batch '
+        f'{TRAIN_BATCH}: {split_loss_err:.3g}, {split_abs_err:.3g}; '
+        f'{wall:.1f} s wall')
+    check(split_bits, 'distributed: the same shards in one process, bit '
+          'for bit')
+    check(loss_err <= DIST_LOSS_RTOL, 'distributed: losses of one process')
+    check(ratio <= 1, 'distributed: parameters of one process')
+
+    mask_err = max(float(np.abs(r['chunked'][0] - want_masks).max())
+                   for r in ranks)
+    act_err = max(float(np.abs(r['chunked'][1] - want_activity).max())
+                  for r in ranks)
+    eval_launches = [r['chunked'][2] for r in ranks]
+    log(f'distributed eval: {DIST_EVAL_SECONDS} s recording, chunks dealt '
+        f'over {DIST_RANKS} ranks against mesh=None: masks max abs err '
+        f'{mask_err:.3g}, activity {act_err:.3g} (tolerance '
+        f'{SERVE_ATOL[BF16]}); launches by rank {eval_launches}; '
+        f'calibration by rank {[r["calibration"] for r in ranks]} against '
+        f'{want_calibration} in one process')
+    check(mask_err <= SERVE_ATOL[BF16] and act_err <= SERVE_ATOL[BF16],
+          'distributed eval: the masks of mesh=None')
+    check(all(r['calibration'][0] == want_calibration[0]
+              and math.isclose(r['calibration'][1], want_calibration[1],
+                               rel_tol=1e-12) for r in ranks),
+          'distributed calibration: the threshold of one process')
+    for launched in eval_launches:
+        check(launched['blstm_fullfused_fwd'] > 0
+              and launched['blstm_bidi_fwd'] > 0,
+              f'distributed eval: launches {launched}')
+
+    numbers = {
+        'card': card,
+        'step_ms': {'1 rank (NCCL), batch 16': step_one[0],
+                    f'{DIST_RANKS} ranks (gloo), batch 8 each': max(
+                        r['step_ms'][0] for r in ranks)},
+        'step_ms_all': {'1 rank': step_one[1],
+                        'by rank': [r['step_ms'][1] for r in ranks]},
+        'allreduce_ms': {'1 rank (NCCL)': nccl_ms,
+                         f'{DIST_RANKS} ranks (gloo, through the host)': max(
+                             r['allreduce_ms'][0] for r in ranks)},
+        'allreduce_mib': ranks[0]['allreduce_mib'],
+        'peak_mib': {'1 rank': peak_one,
+                     'by rank': [r['peak_mib'] for r in ranks]},
+        'agreement': {'1 rank bit for bit': bits,
+                      '2 ranks, the shards in one process, bit for bit':
+                          split_bits,
+                      '2 ranks loss rel err': loss_err,
+                      '2 ranks param abs err': abs_err,
+                      'shards in one process loss rel err': split_loss_err,
+                      'shards in one process param abs err': split_abs_err,
+                      'eval mask err': mask_err, 'eval activity err': act_err},
+    }
+    log(f'distributed ({card}): {json.dumps(numbers)}')
+    return {'launches': launches,
+            **{f'launches rank {r}': got['launches']
+               for r, got in enumerate(ranks)},
+            **{f'eval launches rank {r}': got for r, got in
+               enumerate(eval_launches)},
+            **numbers}
+
+
 def pair_summary(switch, pair, rows, serving, training):
     """Logs a redesigned pair in bfloat16 at batch 16: each kernel's
     numbers, summed over its calls on a served request (forward) or a
@@ -3092,13 +3481,17 @@ def main():
     log(f'-- recipe simulated done at {time.perf_counter() - t0:.1f} s')
     streamed = phase_serving_streaming()
     log(f'-- serve streaming done at {time.perf_counter() - t0:.1f} s')
+    distributed = phase_distributed()
+    log(f'-- distributed done at {time.perf_counter() - t0:.1f} s')
     log(json.dumps({'serving cond_fuse': serving_cond, 'training': training,
                     **switched, 'recipe cli': recipe,
                     'recipe cli flagship': recipe_flagship,
                     'eval flagship': evaluated, 'eval cli': evaluated_cli,
                     'recipe simulated': recipe_sim,
                     'serve streaming': {k: v for k, v in streamed.items()
-                                        if k != 'ms_all'}}))
+                                        if k != 'ms_all'},
+                    'distributed': {k: v for k, v in distributed.items()
+                                    if 'launches' not in k}}))
     pair_summary('cond_fuse', ('blstm_fullfused_cond_fwd',
                                'blstm_fullfused_cond_bwd'), rows,
                  serving_cond, switched['train cond_fuse'])
@@ -3128,7 +3521,11 @@ def main():
            for name, r in recipe_sim['evals'].items()},
         'serve streaming': streamed['launches'],
         **{f'serve kaldi {dtype}': r['launches']
-           for dtype, r in streamed['kaldi'].items()}})))
+           for dtype, r in streamed['kaldi'].items()},
+        'distributed 1 rank': distributed['launches'],
+        **{f'distributed {key}': launched
+           for key, launched in distributed.items()
+           if key.startswith(('launches rank', 'eval launches rank'))}})))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -910,3 +910,54 @@ def test_eval_bidi_fwd_matches_plain(gen, dtype, B, T):
     want, _ = kb.blstm_bidi_fwd_plain(xg, w_hh_t)
     torch.testing.assert_close(got.float(), want.float(),
                                atol=EVAL_TOL[dtype], rtol=0)
+
+
+# -- data parallelism: one NCCL rank ---------------------------------------------
+
+def test_one_nccl_rank_step_equals_the_step_without_a_mesh(gen, monkeypatch):
+    """``Trainer(mesh={'data': 1})`` in a one-rank NCCL group (the broadcast
+    from rank 0 and the gradient all-reduce issued on the card) takes the
+    steps of the trainer without a mesh bit for bit, through the kernels."""
+    import socket
+    from tssep_tpu_torch.data.device_sim import (DeviceMeetingSimulator,
+                                                 DeviceSimDataset)
+    from tssep_tpu_torch.dist import multihost
+    from tssep_tpu_torch.tasks.model import Model
+    from tssep_tpu_torch.train.trainer import Trainer
+    cfg = {'fe': {'size': 64, 'shift': 16, 'window': 'hann'},
+           'reader': {'aux_size': 33},
+           'mask_estimator': {'units': 16, 'projs': 16, 'combination': 'mul',
+                              'ts_vad': 3, 'aux_net_output_size': 33,
+                              'num_averaged_permutations': 1,
+                              'output_resolution': 'tf'}}
+    sim = DeviceMeetingSimulator(duration=0.25, num_speakers=3, aux_size=33,
+                                 enroll_seconds=0.1)
+
+    def run(mesh):
+        model = Model.from_config(cfg, storage_dtype=torch.bfloat16,
+                                  device='cuda')
+        trainer = Trainer(model, None, mesh=mesh)
+        trainer.ensure_init()
+        data = DeviceSimDataset(
+            sim, 4, seed=1, device='cuda',
+            targets=model.loss.device_targets() | {'Vad'},
+            shard=None if mesh is None else trainer.mesh.shard)
+        return trainer.train_steps(data, 2), model.state_dict()
+
+    want_losses, want = run(None)
+    monkeypatch.setattr(multihost, '_initialized', False)
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f'127.0.0.1:{port}', 1, 0, backend='nccl',
+                         timeout=120)
+    try:
+        assert multihost.backend() == 'nccl'
+        before = kb.blstm_fullfused_bwd.launches
+        losses, got = run({'data': 1})
+        assert kb.blstm_fullfused_bwd.launches > before
+    finally:
+        torch.distributed.destroy_process_group()
+    assert losses == want_losses
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k

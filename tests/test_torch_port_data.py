@@ -214,5 +214,9 @@ def test_example_to_device_moves_the_device_keys(models):
                                       host[k].astype(np.float32))
     assert isinstance(ex['vad'], np.ndarray)        # not a device key
     assert ex['example_id'] == host['example_id']
-    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
-        ours.prepare_train_dataset(host_shard=True)
+    # one process: the host shard is the whole dataset
+    sharded = ours.prepare_validate_dataset(host_shard=True, batch_size=2,
+                                            prefetch=False)
+    assert [b['example_id'] for b in sharded] == [
+        b['example_id'] for b in ours.prepare_validate_dataset(
+            batch_size=2, prefetch=False)]

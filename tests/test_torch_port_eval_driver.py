@@ -88,17 +88,36 @@ def test_calibration_matches_jax():
 
 
 def test_cross_host_calibration_raises_across_processes():
-    """Under ``torch.distributed`` with more than one process the all-reduce
-    is ROADMAP Queue 1 item 4: it raises rather than calibrating on one
-    process's share."""
-    dist = torch.distributed
-    with mock.patch.object(dist, 'is_initialized', lambda: True), \
-            mock.patch.object(dist, 'get_world_size', lambda: 2):
-        with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
-            driver.calibrate_threshold([np.ones((1, 9))],
-                                       [np.ones((1, 9), bool)])
-        driver.calibrate_threshold([np.ones((1, 9))],
-                                   [np.ones((1, 9), bool)], cross_host=False)
+    """Under ``torch.distributed`` with more than one process, the
+    per-threshold statistics are all-reduced before the argmin (the
+    group's all-reduce stands in for the other process here: it doubles
+    the errors of one threshold, which the choice then avoids); with
+    ``cross_host=False`` they are not. Real processes:
+    ``tests/test_torch_port_multihost.py``."""
+    from tssep_tpu_torch.dist import multihost
+    rng = np.random.default_rng(0)
+    refs = [rng.random((3, 200)) > 0.7]
+    acts = [0.25 + 0.2 * r + 0.05 * rng.standard_normal(r.shape)
+            for r in refs]
+    alone = driver.calibrate_threshold(acts, refs)
+    ths = driver.calibration_stats(acts, refs)[0]
+    i = int(np.argmin(np.abs(ths - alone[0])))
+    reduced = []
+
+    def all_reduce_host(stats):
+        reduced.append(stats)
+        stats = np.array(stats)
+        stats[0] += stats[0].max() * (np.arange(len(ths)) >= i - 1)
+        return stats
+
+    with mock.patch.object(multihost, 'process_count', lambda: 2), \
+            mock.patch.object(multihost, 'all_reduce_host', all_reduce_host):
+        summed = driver.calibrate_threshold(acts, refs)
+        assert len(reduced) == 1 and reduced[0].shape == (2, len(ths))
+        assert summed[0] < alone[0]
+        assert driver.calibrate_threshold(acts, refs,
+                                          cross_host=False) == alone
+        assert len(reduced) == 1
 
 
 def test_to_numpy_casts_bf16_on_device_and_keeps_complex():
@@ -225,9 +244,18 @@ def test_run_recording_matches_jax(channels, chunk, hop, batch, beamform,
 
 
 def test_mesh_is_not_ported():
+    """A data axis is ported (the chunks dealt over the ranks,
+    ``tests/test_torch_port_multihost.py``: ``batch_chunks`` rounded to it);
+    a model axis is item 4b."""
+    from tssep_tpu_torch.dist import mesh as mesh_lib
     _, _, ours = _both(1)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
-        driver.ChunkedMaskEstimator(ours, mesh=object())
+    with pytest.raises(NotImplementedError, match='Queue 1 item 4b'):
+        driver.ChunkedMaskEstimator(ours,
+                                    mesh=mesh_lib.make_mesh(4, 2, rank=0))
+    for data, want in ((2, 8), (3, 6), (16, 16)):
+        chunked = driver.ChunkedMaskEstimator(
+            ours, mesh=mesh_lib.make_mesh(data, rank=0))
+        assert chunked.batch_chunks == want
 
 
 # -- slow: evaluate and the CLI through both packages -----------------------------

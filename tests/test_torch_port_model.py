@@ -29,6 +29,7 @@ from tssep_tpu_torch.features.extractor import Log1pMaxNormAbsSTFT
 from tssep_tpu_torch.nn.rnnp import RNNP
 from tssep_tpu_torch.signal.stft import STFT
 from tssep_tpu_torch.tasks.model import Model
+from tssep_tpu_torch.train.trainer import Trainer
 from tssep_tpu_torch.utils.device import resolve_device
 
 ATOL = 1e-4
@@ -187,16 +188,19 @@ def test_load_npz_reads_a_jax_checkpoint(tmp_path):
 def test_not_ported_options_raise():
     """A waveform feature extractor (``features/kaldi.py``) now builds into
     a model whose estimator takes its width, as JAX's does; what stays
-    unported (multi-host sharding, ROADMAP Queue 1 item 4) raises and says
-    so."""
+    unported (tensor parallelism, ROADMAP Queue 1 item 4b) raises and says
+    so; multi-process sharding (item 4) is ported: in one process the host
+    shard is the whole dataset."""
     cfg = _small_config('cat', 3, False)
     cfg['fe'] = {'factory': 'tssep_tpu.features.kaldi.KaldiMFCC'}
     ours = Model.from_config(cfg, device='cpu')
     ref = JaxModel.new(cfg)
     assert type(ours.fe).__name__ == type(ref.fe).__name__ == 'KaldiMFCC'
     assert ours.mask_estimator.idim == ref.mask_estimator.idim == 13
-    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
-        ours.prepare_train_dataset(host_shard=True)
+    assert len(ours.prepare_train_dataset(host_shard=True, prefetch=False)) \
+        == len(ours.prepare_train_dataset(prefetch=False))
+    with pytest.raises(NotImplementedError, match='Queue 1 item 4b'):
+        Trainer(ours, None, mesh={'model': 2})
 
 
 @pytest.mark.parametrize('kwargs,raises', [

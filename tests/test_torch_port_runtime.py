@@ -355,8 +355,13 @@ def test_async_checkpoints_and_resume(tmp_path):
 
 
 def test_mesh_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
-        _port_eg('tsvad', tmp_path, mesh={'data': 2})
+    """The data axis is ported (tests/test_torch_port_multihost.py); the
+    model axis is item 4b and raises; a data axis of 2 needs 2 processes."""
+    with pytest.raises(NotImplementedError, match='Queue 1 item 4b'):
+        _port_eg('tsvad', tmp_path, mesh={'data': 2, 'model': 2})
+    eg = _port_eg('tsvad', tmp_path, mesh={'data': 2})
+    with pytest.raises(ValueError, match='start 2 processes'):
+        eg.trainer.ensure_init()
 
 
 def test_reports(tmp_path):

@@ -301,6 +301,29 @@ def test_adam_step_matches_optax(grad_norm):
                                        atol=2e-7, rtol=0)
 
 
+def test_clip_scales_a_shared_gradient_once():
+    """An LSTM layer's two biases get one gradient, and the layer's
+    backward leaves their .grad as views of one tensor: the clip scales
+    each once, as optax's ``clip_by_global_norm`` scales its two leaves."""
+    from tssep_tpu_torch.nn.rnnp import RNNP
+    layer = RNNP(5, elayers=1, cdim=4, hdim=3, storage_dtype=torch.float32,
+                 device='cpu')
+    layer.init_params(torch.Generator().manual_seed(0))
+    x = torch.randn(2, 7, 5, generator=torch.Generator().manual_seed(1))
+    (100 * layer(x)).square().sum().backward()
+    params = [p for p in layer.parameters()]
+    lstm = layer.lstm0
+    assert lstm.bias_ih_l0.grad.data_ptr() == lstm.bias_hh_l0.grad.data_ptr()
+    grads = [p.grad.numpy().copy() for p in params]
+    clipped, _ = optax.clip_by_global_norm(1).update(
+        [jnp.asarray(g) for g in grads], optax.EmptyState())
+    opt = Adam(gradient_clipping=1, lr=1e-3).make(params)
+    assert opt.step().item() > 1
+    for p, want in zip(params, clipped):
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=0)
+
+
 def test_not_ported_adam_options_raise():
     """amsgrad, weight decay and multi-step accumulation are ported: each
     builds the update that optax chains for it (their trajectories against

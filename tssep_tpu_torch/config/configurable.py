@@ -61,10 +61,9 @@ _JAX_PACKAGE = 'tssep_tpu.'
 _PORT_PACKAGE = 'tssep_tpu_torch.'
 
 #: Modules of the JAX package the port has not ported yet, and where they
-#: stand in ROADMAP.md.
-NOT_PORTED = {
-    'tssep_tpu_torch.dist.': 'ROADMAP Queue 1 item 4',
-}
+#: stand in ROADMAP.md (none: tensor parallelism, item 4b, is an option of
+#: ``dist.mesh`` and raises there).
+NOT_PORTED: dict[str, str] = {}
 
 #: The port's modules that hold factories, searched for a bare class name.
 _FACTORY_MODULES = (

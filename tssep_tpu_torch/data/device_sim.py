@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from tssep_tpu_torch.data.dummy import staircase_vad
+from tssep_tpu_torch.dist.mesh import RowShard, ShardedGenerator, batch_rand
 from tssep_tpu_torch.signal.stft import STFT
 from tssep_tpu_torch.signal.vad import stft_vad
 from tssep_tpu_torch.utils.device import resolve_device
@@ -67,8 +68,7 @@ class DeviceMeetingSimulator:
         s, h = self.num_speakers, self.n_harmonics
 
         def uniform(shape, low, high):
-            return low + (high - low) * torch.rand(
-                shape, generator=generator, device=generator.device)
+            return low + (high - low) * batch_rand(generator, shape)
 
         return {f'{prefix}_phases': uniform((batch, s, h), 0, 2 * np.pi),
                 f'{prefix}_am_f': uniform((batch, s, 1), 1.0, 4.0),
@@ -80,16 +80,15 @@ class DeviceMeetingSimulator:
         (``src_*``) and of the enrollment (``enr_*``), noise (B, samples)."""
         s, h = self.num_speakers, self.n_harmonics
         dev = generator.device
-        u = torch.rand((batch, s), generator=generator, device=dev)
+        u = batch_rand(generator, (batch, s))
         lo, hi = math.log(self.f0_min), math.log(self.f0_max)
         draws = {'f0s': torch.exp(lo + (hi - lo) * u)}
-        amps = 0.05 + 0.95 * torch.rand((batch, s, h), generator=generator,
-                                        device=dev)
+        amps = 0.05 + 0.95 * batch_rand(generator, (batch, s, h))
         draws['amps'] = amps / torch.arange(1, h + 1, device=dev)
         draws.update(self._source_draws(generator, batch, 'src'))
         draws.update(self._source_draws(generator, batch, 'enr'))
-        draws['noise'] = torch.randn((batch, self.num_samples),
-                                     generator=generator, device=dev)
+        draws['noise'] = batch_rand(generator, (batch, self.num_samples),
+                                    torch.randn)
         return draws
 
     def _sources(self, num_samples, f0s, amps, phases, am_f, am_p):
@@ -164,22 +163,33 @@ class DeviceMeetingSimulator:
 class DeviceSimDataset:
     """Infinite batches from the simulator, drawn from one generator seeded
     with ``seed`` on ``device`` (the card unless the caller passes 'cpu').
-    Keys that are neither inputs nor in ``targets`` are dropped."""
+    Keys that are neither inputs nor in ``targets`` are dropped. With a
+    ``shard`` (``dist.mesh.RowShard``), ``batch`` is the global batch and
+    each batch is the shard's rows of it (``batch // shard.size``), drawn
+    as one process draws them."""
 
     def __init__(self, simulator: DeviceMeetingSimulator, batch: int,
-                 seed: int = 0, targets=('Vad',), device='cuda'):
+                 seed: int = 0, targets=('Vad',), device='cuda',
+                 shard: RowShard | None = None):
         self.simulator = simulator
         self.batch = batch
         self.seed = seed
         self.targets = set(targets)
         self.device = resolve_device(device)
+        self.shard = shard
 
     def __iter__(self):
-        generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        if self.shard is None:
+            generator = torch.Generator(device=self.device)
+            batch = self.batch
+        else:
+            batch = self.shard.local(self.batch)
+            generator = ShardedGenerator(self.device, self.shard, batch)
+        generator.manual_seed(self.seed)
         while True:
-            ex = self.simulator.generate(generator, self.batch)
+            ex = self.simulator.generate(generator, batch)
             for key in ('Vad', 'speaker_reverberation_early_ch0'):
                 if key not in self.targets:
                     ex.pop(key)
-            ex['dataset'] = ['train'] * self.batch
+            ex['dataset'] = ['train'] * batch
             yield ex

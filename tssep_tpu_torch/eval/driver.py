@@ -19,9 +19,10 @@ stitching, and metrics.
    samples.
 
 Host-side work (stitching, diarization, beamforming, metrics) is numpy, as
-in the JAX package. Sharding the chunks over a device mesh and the
-cross-host calibration need ``torch.distributed`` (ROADMAP Queue 1 item 4)
-and raise.
+in the JAX package. Under a mesh (``dist.mesh.make_mesh``) every rank
+holds the recording, each runs its rows of every forward call's chunks
+and the masks are gathered (``ChunkedMaskEstimator(mesh=)``); the
+calibration sums its statistics over the processes.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ import time
 import numpy as np
 import torch
 
+from tssep_tpu_torch.dist import mesh as mesh_lib
+from tssep_tpu_torch.dist import multihost
 from tssep_tpu_torch.eval.classic_bf import ClassicBF
 from tssep_tpu_torch.eval.metrics import der
 from tssep_tpu_torch.signal.intervals import ArrayInterval
@@ -177,8 +180,12 @@ class ChunkedMaskEstimator:
 
     chunk/hop in STFT frames; ``batch_chunks`` chunks per forward call on
     the model's device (the last call padded with copies of its last chunk
-    when the recording has more than one call's chunks). ``mesh``
-    (chunks sharded over devices) is ROADMAP Queue 1 item 4.
+    when the recording has more than one call's chunks, or under a mesh).
+    ``mesh`` (``dist.mesh.Mesh``): the chunks are the data-parallel axis of
+    long-recording inference (JAX :155-230); ``batch_chunks`` is rounded to
+    a multiple of the data axis, every rank runs its rows of each call and
+    the masks and logits are gathered, so each rank returns the whole
+    recording's.
     """
 
     model: object
@@ -195,9 +202,12 @@ class ChunkedMaskEstimator:
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise NotImplementedError(
-                f'mesh={self.mesh!r}: chunks sharded over a device mesh on '
-                f'torch.distributed are ROADMAP Queue 1 item 4')
+            if self.mesh.shape[mesh_lib.MODEL_AXIS] > 1:
+                raise NotImplementedError(f'{self.mesh!r}: '
+                                          f'{mesh_lib.ITEM_4B}')
+            n = self.mesh.shape[mesh_lib.DATA_AXIS]
+            self.batch_chunks = max(self.batch_chunks, n)
+            self.batch_chunks -= self.batch_chunks % n or 0
         #: Milliseconds of the last call: 'features', 'forward' (the
         #: forward calls and their host copies) and 'stitch' (the
         #: stitching, the sigmoid and the activity, on the host).
@@ -230,15 +240,22 @@ class ChunkedMaskEstimator:
                 feats = torch.stack([feats_full[s:s + chunk]
                                      for s in batch_starts])
                 pad = self.batch_chunks - len(batch_starts)
-                if pad and len(starts) > self.batch_chunks:
+                if pad and (len(starts) > self.batch_chunks
+                            or self.mesh is not None):
                     feats = torch.cat(
                         [feats, feats[-1:].expand(pad, *feats.shape[1:])])
+                if self.mesh is not None:
+                    feats = feats[self.mesh.shard.rows(
+                        feats.shape[0])].contiguous()
                 aux_b = aux[None].expand(feats.shape[0], *aux.shape)
                 out = me(feats, aux_b, training=False)
-                logits = (out.logit if out.logit is not None
-                          else out.vad_logit[..., None])
+                mask, logits = out.mask, (out.logit if out.logit is not None
+                                          else out.vad_logit[..., None])
+                if self.mesh is not None:
+                    mask = mesh_lib.gather_rows(mask.float(), self.mesh)
+                    logits = mesh_lib.gather_rows(logits.float(), self.mesh)
                 n = len(batch_starts)
-                mask_chunks.extend(to_numpy(out.mask[:n]))
+                mask_chunks.extend(to_numpy(mask[:n]))
                 logit_chunks.extend(to_numpy(logits[:n]))
         stages.lap('forward')
 
@@ -513,24 +530,18 @@ def calibrate_threshold(activities, references, thresholds=None,
     """Pick the activity threshold minimizing DER over a calibration set.
 
     activities: list of (spk, frames) scores; references: list of matching
-    (spk, frames) boolean frame activities.  In one process
-    ``cross_host`` changes nothing. Under ``torch.distributed`` with more
-    than one process it raises: the all-reduce of the per-threshold
-    statistics over the processes is ROADMAP Queue 1 item 4, and a
-    calibration on one process's share alone would pick another
-    threshold on each. Returns (best_threshold, best_der).
+    (spk, frames) boolean frame activities.  Under ``torch.distributed``
+    with more than one process (``cross_host``), the per-threshold (error,
+    total) frame counts of every process's local examples are all-reduced
+    before the argmin, so all processes pick the same threshold from the
+    *global* calibration set; in one process this changes nothing.
+    Returns (best_threshold, best_der).
     """
-    if (cross_host and torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            f'calibrate_threshold(cross_host=True) over '
-            f'{torch.distributed.get_world_size()} processes: the '
-            f'all-reduce of the calibration statistics on '
-            f'torch.distributed is ROADMAP Queue 1 item 4')
     ths, err, ref_tot = calibration_stats(
         activities, references, thresholds, smooth_kernel, min_frames,
         merge_gap, pad_frames)
+    if cross_host and multihost.process_count() > 1:
+        err, ref_tot = multihost.all_reduce_host(np.stack([err, ref_tot]))
     ders = err / np.maximum(ref_tot, 1)
     i = int(np.argmin(ders))
     # Plateau-center tie-break: mask-derived activity is near-binary after

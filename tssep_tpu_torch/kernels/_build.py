@@ -5,13 +5,17 @@ PyTorch headers and takes seconds. Each source compiles in its own ``nvcc``
 process, all started together, and one more call links the objects. The
 shared library goes to ``build/`` at the repository root, named by a hash of
 the sources and flags, and is built at first use: a process that finds a
-library for the current sources loads it.
+library for the current sources loads it. Processes that start together
+(the ranks of a data-parallel run) build it once: the first takes a file
+lock in ``build/`` and builds, the others wait for it and load.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import fcntl
 import functools
 import hashlib
 import os
@@ -171,12 +175,28 @@ def build() -> BuildResult:
     return BuildResult(out, seconds, log)
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on ``build/build.lock`` (released when the
+    process ends, however it ends)."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    with open(BUILD_DIR / 'build.lock', 'w') as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The kernels' shared library, built first if this source has none."""
+    """The kernels' shared library, built first if this source has none
+    (by one process at a time)."""
     path = _library_path()
     if not path.exists():
-        build()
+        with _build_lock():
+            if not path.exists():
+                build()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -37,6 +37,7 @@ import typing
 import torch
 from torch import nn
 
+from tssep_tpu_torch.dist.mesh import batch_rand
 from tssep_tpu_torch.nn.init import linear_init_
 from tssep_tpu_torch.nn.norm import norm_from_config
 from tssep_tpu_torch.nn.rnnp import RNNP, inverted_dropout
@@ -308,9 +309,7 @@ class MaskEstimator(nn.Module):
 
         perm = None
         if self.random_speaker_order and generator is not None:
-            perm = torch.rand(B, S, generator=generator,
-                              device=generator.device).argsort(-1).to(
-                                  aux.device)
+            perm = batch_rand(generator, (B, S)).argsort(-1).to(aux.device)
             aux = _gather_speakers(aux, perm)
             if aux_lengths is not None:
                 aux_lengths = _gather_speakers(

@@ -62,6 +62,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from tssep_tpu_torch.dist.mesh import batch_rand
 from tssep_tpu_torch.kernels.blstm import (blstm_bidi_bwd, blstm_bidi_fwd,
                                            blstm_fullfused_bwd,
                                            blstm_fullfused_cond_bwd,
@@ -529,6 +530,5 @@ def inverted_dropout(h, p, generator: torch.Generator | None):
     (JAX: ``training and dropout > 0 and rng is not None``)."""
     if not p or generator is None:
         return h
-    keep = torch.rand(h.shape, generator=generator,
-                      device=generator.device) < 1 - p
+    keep = batch_rand(generator, h.shape) < 1 - p
     return torch.where(keep.to(h.device), h / (1 - p), torch.zeros_like(h))

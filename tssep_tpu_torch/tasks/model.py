@@ -48,6 +48,7 @@ from torch import nn
 from tssep_tpu_torch.config.configurable import (
     Configurable, from_config, get_config, import_class)
 from tssep_tpu_torch.data.dummy import DummyReader
+from tssep_tpu_torch.dist import multihost
 from tssep_tpu_torch.features import extractor as feature_extractor
 from tssep_tpu_torch.nn.estimator import MaskEstimator
 from tssep_tpu_torch.signal.vad import stft_vad
@@ -215,15 +216,13 @@ class Model(nn.Module, Configurable):
     ):
         """The reader's ``dataset_name`` as model examples
         (``tssep_tpu/tasks/model.py:142-247``): targets selected, shuffled
-        when ``training`` (unless sorted longest first), batched and
-        collated with ``batch_size``, prefetched on threads (a failing
+        when ``training`` (unless sorted longest first), dealt round-robin
+        to this process with ``host_shard`` (``dist.multihost``), batched
+        and collated with ``batch_size``, prefetched on threads (a failing
         example is dropped), and moved to ``device`` (the model's by
         default; ``False`` leaves them on the host)."""
         if reader is None:
             reader = self.reader
-        if host_shard:
-            raise NotImplementedError('host_shard (multi-host) is ROADMAP '
-                                      'Queue 1 item 4')
 
         if sort:
             def pre_load_apply(ds):
@@ -295,6 +294,14 @@ class Model(nn.Module, Configurable):
 
         if training and not sort:
             ds = ds.shuffle(reshuffle=True)
+
+        if host_shard:
+            # Multi-process: deal examples round-robin by rank AFTER the
+            # (seed-deterministic, process-identical) shuffle, so the union
+            # of all ranks' local batches is exactly the global batch one
+            # process would see (tests/test_torch_port_multihost.py
+            # compares the trajectories).
+            ds = multihost.host_shard_dataset(ds)
 
         if batch_size is not None:
             ds = ds.batch(batch_size, drop_last=drop_last)

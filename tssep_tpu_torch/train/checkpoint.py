@@ -14,7 +14,8 @@ so each package reads the other's files.
 - ``__meta__``: JSON (iteration, best validation loss, patience counter);
 - ``ckpt_<it>.npz`` with ``ckpt_latest.npz`` / ``ckpt_best_loss.npz``
   symlinks; an optional single background writer (``async_write``) and
-  ``write=False``, which gathers but writes nothing.
+  ``write=False``, which writes nothing: the data ranks other than 0 pass
+  it (their parameters are rank 0's, so there is nothing to gather).
 """
 
 from __future__ import annotations
@@ -178,9 +179,11 @@ def save_checkpoint(ckpt_dir, iteration, model, optimizer=None, meta=None,
     """Writes ``ckpt_<iteration>.npz`` (``model``'s parameters, the
     optimizer's state, ``meta``) and relinks ``ckpt_latest.npz`` (and
     ``ckpt_best_loss.npz`` with ``best``). ``model`` is a module or a
-    ``{name: array}`` dict. ``write=False`` copies everything to the host
-    and writes nothing; ``after_write`` runs once the file and the links are
-    on disk (in the writer thread with ``async_write``)."""
+    ``{name: array}`` dict. ``write=False`` copies nothing and writes
+    nothing; ``after_write`` runs once the file and the links are on disk
+    (in the writer thread with ``async_write``)."""
+    if not write:
+        return None
     ckpt_dir = Path(ckpt_dir)
     named = (model if isinstance(model, dict) else params_to_named(model))
     payload = {f'model/{name}': _to_numpy(arr) for name, arr in named.items()}
@@ -189,8 +192,6 @@ def save_checkpoint(ckpt_dir, iteration, model, optimizer=None, meta=None,
         arrays, meta['opt_layout'] = optimizer_state(optimizer)
         for i, arr in enumerate(arrays):
             payload[f'opt/{i:05d}'] = arr
-    if not write:
-        return None
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     meta['iteration'] = int(iteration)
     payload['__meta__'] = np.frombuffer(json.dumps(meta).encode(),

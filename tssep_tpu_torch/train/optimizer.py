@@ -35,7 +35,10 @@ def clip_by_global_norm_(grads, max_norm):
         torch.stack([torch.linalg.vector_norm(g) for g in grads]))
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
-    for g in grads:
+    # An LSTM layer's two biases get one gradient: autograd leaves their
+    # .grad as views of one tensor. Scale each view once, as optax scales
+    # each leaf once; the norm counts both, as optax's does.
+    for g in {(g.data_ptr(), g.shape, g.stride()): g for g in grads}.values():
         g.mul_(scale)
     return norm
 

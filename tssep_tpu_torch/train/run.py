@@ -16,6 +16,12 @@ off), ``TSSEP_PALLAS_FULLFUSE`` (on), ``TSSEP_PALLAS_SPILL`` (off) and
 ``TSSEP_PALLAS_BIDI`` (on), as the JAX package reads them, and the head's
 type ``TSSEP_HEAD_BF16`` (default off: float32; ``tssep_tpu/nn/estimator.py:
 130``). None of these is part of ``config.yaml``.
+
+Data-parallel: with ``eg.trainer.mesh`` set, run one process a rank under
+``python -m torch.distributed.run --nproc_per_node=N -m
+tssep_tpu_torch.train.run ...`` (NCCL on the cards, gloo with ``--cpu``);
+``init`` joins the process group first, and rank 0 alone writes the
+storage dir.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import yaml
 from tssep_tpu_torch.config.configurable import (
     dump_yaml, dumps_yaml, from_config, load_yaml, nested_merge, nested_set,
 )
+from tssep_tpu_torch.dist import multihost
 from tssep_tpu_torch.train.experiment import Experiment
 
 __all__ = ['main', 'build_config', 'init', 'train', 'runtime_options']
@@ -202,9 +209,11 @@ def _nvidia_smi():
 def host_info():
     """Environment snapshot for the storage dir (sacred host-info,
     reference ``run.py:59-68``): the host, Python, torch and CUDA, the
-    card's name and power limit, and the SLURM/CUDA/TSSEP/OMP variables."""
+    process's rank and the process count, the card's name and power limit,
+    and the SLURM/CUDA/TSSEP/OMP and rendezvous variables."""
     keys = [k for k in os.environ
-            if k.startswith(('SLURM', 'CUDA', 'TSSEP', 'OMP'))]
+            if k.startswith(('SLURM', 'CUDA', 'TSSEP', 'OMP', 'MASTER_',
+                             'WORLD_SIZE', 'RANK', 'LOCAL_RANK'))]
     info = {
         'hostname': platform.node(),
         'platform': platform.platform(),
@@ -214,6 +223,8 @@ def host_info():
         'argv': sys.argv,
         'cwd': str(Path.cwd()),
         'env': {k: os.environ[k] for k in sorted(keys)},
+        'process_index': multihost.process_index(),
+        'process_count': multihost.process_count(),
     }
     if torch.cuda.is_available():
         info['devices'] = [torch.cuda.get_device_name(i)
@@ -226,7 +237,13 @@ def host_info():
 
 def init(config, options=None):
     """Writes the storage dir and returns the ``Experiment`` built with
-    ``options`` (``runtime_options``; default: the card, float32)."""
+    ``options`` (``runtime_options``; default: the card, float32). With
+    a mesh, joins the process group first, and only rank 0 writes."""
+    options = options or {}
+    if config['eg']['trainer'].get('mesh'):
+        multihost.initialize(device=options.get('device'))
+    if multihost.process_index() != 0:
+        return from_config(config['eg'], **options)
     storage_dir = Path(config['eg']['trainer']['storage_dir'])
     storage_dir.mkdir(exist_ok=True, parents=True)
 
@@ -246,7 +263,7 @@ def init(config, options=None):
     print(dumps_yaml(config))
     write_makefile(storage_dir)
 
-    eg: Experiment = from_config(config['eg'], **(options or {}))
+    eg: Experiment = from_config(config['eg'], **options)
     eg.add_log_files()
     print(f'Initialized {storage_dir}')
     return eg

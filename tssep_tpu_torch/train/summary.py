@@ -81,13 +81,17 @@ def _colorize(x, vmin=None, vmax=None):
 
 
 class SummaryWriter:
-    """Flushes ReviewSummary payloads to metrics.jsonl + tfevents."""
+    """Flushes ReviewSummary payloads to metrics.jsonl + tfevents.
+    ``write=False`` (the data ranks other than 0) opens nothing and writes
+    nothing; ``flush`` still returns the record."""
 
-    def __init__(self, storage_dir, use_tensorboard=True):
+    def __init__(self, storage_dir, use_tensorboard=True, write=True):
         self.storage_dir = Path(storage_dir)
+        self.jsonl = self.tb = None
+        if not write:
+            return
         self.storage_dir.mkdir(parents=True, exist_ok=True)
         self.jsonl = open(self.storage_dir / 'metrics.jsonl', 'a')
-        self.tb = None
         if use_tensorboard:
             try:
                 from tensorboardX import SummaryWriter as TBWriter
@@ -109,6 +113,8 @@ class SummaryWriter:
         if summary.images:
             record[prefix + 'image_keys'] = sorted(
                 prefix + k for k in summary.images)
+        if self.jsonl is None:
+            return record
         self.jsonl.write(json.dumps(record) + '\n')
         self.jsonl.flush()
 
@@ -144,6 +150,8 @@ class SummaryWriter:
         return record
 
     def scalar(self, name, value, step):
+        if self.jsonl is None:
+            return
         self.jsonl.write(json.dumps(
             {'step': int(step), name: float(value), 'time': time.time()}) + '\n')
         self.jsonl.flush()
@@ -151,6 +159,7 @@ class SummaryWriter:
             self.tb.add_scalar(name, float(value), step)
 
     def close(self):
-        self.jsonl.close()
+        if self.jsonl is not None:
+            self.jsonl.close()
         if self.tb is not None:
             self.tb.close()

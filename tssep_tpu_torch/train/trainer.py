@@ -25,7 +25,22 @@ the index level, ``Dataset.iter_from``), so it draws what an uninterrupted
 run draws (the JAX trainer restarts its data). The draws themselves are
 torch's, not JAX's.
 
-``mesh`` (data and model parallelism) is ROADMAP Queue 1 item 4 and raises.
+Data parallelism (``mesh={'data': D}``, JAX :15-30): one process a
+rank, each with one device, D ranks in the process group
+(``dist.multihost.initialize``; ``data=None`` takes them all). Every rank
+builds the model from ``seed`` and the parameters are broadcast from rank 0
+(at init and at resume); each rank's batch is its rows of the global batch
+(``dist.multihost.host_shard_dataset``, or a ``DeviceSimDataset`` given
+the mesh's shard), its step runs the kernels on them, and one
+``all_reduce`` sums the gradients and the loss over the data group before
+the clip, in every micro-step, as the JAX ``shard_map`` step ``psum``-s
+them (:325-372); the losses are sums over the examples, so the sum is the
+one-process gradient. The micro-step's generator draws each rank's rows
+of what one process draws over the global batch
+(``dist.mesh.ShardedGenerator``). Validation gathers the per-example
+losses, so the best-checkpoint and early-stop decisions are the same on
+every rank; rank 0 alone writes checkpoints, metrics and snapshots.
+``'model' > 1`` is ROADMAP Queue 1 item 4b and raises.
 """
 
 from __future__ import annotations
@@ -39,6 +54,8 @@ import numpy as np
 import torch
 
 from tssep_tpu_torch.config.configurable import Configurable, from_config
+from tssep_tpu_torch.dist import mesh as mesh_lib
+from tssep_tpu_torch.dist import multihost
 from tssep_tpu_torch.train import checkpoint as ckpt_lib
 from tssep_tpu_torch.train.optimizer import Adam
 from tssep_tpu_torch.train.summary import ReviewSummary, SummaryWriter
@@ -60,12 +77,23 @@ def _trigger(value):
     return int(value)
 
 
-def step_generator(device, *key) -> torch.Generator:
+def step_generator(device, *key, shard=None, examples=None
+                   ) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded from the non-negative
-    integers ``key`` (for example seed, iteration and micro-step)."""
+    integers ``key`` (for example seed, iteration and micro-step); with a
+    ``shard`` (``dist.mesh.RowShard``), a ``ShardedGenerator`` of a batch
+    of ``examples`` local examples."""
     seed = int(np.random.SeedSequence(list(key)).generate_state(
         1, np.uint64)[0]) & (2 ** 63 - 1)
-    return torch.Generator(device=device).manual_seed(seed)
+    if shard is None:
+        return torch.Generator(device=device).manual_seed(seed)
+    return mesh_lib.ShardedGenerator(device, shard, examples).manual_seed(
+        seed)
+
+
+def _batch_size(batch):
+    return next((v.shape[0] for v in batch.values()
+                 if getattr(v, 'ndim', 0) >= 1), 1)
 
 
 def _examples(per_example):
@@ -90,10 +118,6 @@ class Trainer(Configurable):
                  virtual_minibatch_size=1,
                  seed=0, mesh=None, create_snapshots=True,
                  async_checkpoints=False, early_stop_patience=0):
-        if mesh:
-            raise NotImplementedError(
-                f'mesh={mesh!r}: data and model parallelism on '
-                f'torch.distributed is ROADMAP Queue 1 item 4')
         if isinstance(model, dict):
             model = from_config(model)
         if optimizer is None:
@@ -108,6 +132,12 @@ class Trainer(Configurable):
         self.stop_trigger = _trigger(stop_trigger)
         self.virtual_minibatch_size = int(virtual_minibatch_size)
         self.seed = seed
+        #: None (one process) or {'data': D|None, 'model': M}.
+        self.mesh_config = dict(mesh) if mesh else None
+        if self.mesh_config and int(self.mesh_config.get('model', 1)
+                                    or 1) > 1:
+            raise NotImplementedError(f'mesh={mesh!r}: {mesh_lib.ITEM_4B}')
+        self.mesh = None
         #: Emit audio/spectrogram/mask-image payloads at summary and
         #: validation triggers (reference ``model.py:692-752``).
         self.create_snapshots = bool(create_snapshots)
@@ -136,9 +166,64 @@ class Trainer(Configurable):
     def device(self):
         return self.model.device
 
+    @property
+    def data_parallel_size(self):
+        """Batch-divisibility requirement imposed by the mesh (1 if none)."""
+        if self.mesh_config is None:
+            return 1
+        self._ensure_mesh()
+        return self.mesh.shape[mesh_lib.DATA_AXIS]
+
+    @property
+    def is_writer(self):
+        """Whether this process writes checkpoints, metrics and snapshots
+        (rank 0)."""
+        return multihost.process_index() == 0
+
+    def _ensure_mesh(self):
+        if self.mesh_config is None or self.mesh is not None:
+            return
+        data_par = self.mesh_config.get('data')
+        n_devices = (None if data_par in (None, -1, 'all')
+                     else int(data_par))
+        self.mesh = mesh_lib.make_mesh(n_devices)
+
+    def _place_batch(self, batch):
+        """This rank's batch as its step computes on it: its local rows,
+        checked against its share of the data axis (the mesh spans the
+        process group, a device a rank)."""
+        if self.mesh is None:
+            return batch
+        return multihost.global_batch_from_local(batch, self.mesh)
+
+    def _generator(self, batch, *key):
+        """The generator of ``key`` for ``batch``: a rank's rows of the
+        global batch's draws under a mesh."""
+        if self.mesh is None:
+            return step_generator(self.device, *key)
+        return step_generator(self.device, *key, shard=self.mesh.shard,
+                              examples=_batch_size(batch))
+
+    def _all_reduce_grads(self, loss):
+        """Sums the gradients and ``loss`` over the data group, in one
+        ``all_reduce`` of a flat float32 buffer; returns the summed loss.
+        The identity without a process group."""
+        if self.mesh is None or multihost.backend() is None:
+            return loss
+        grads = [p.grad for p in self.optimizer.params if p.grad is not None]
+        flat = torch.cat([g.reshape(-1).float() for g in grads]
+                         + [loss.detach().reshape(1).float()])
+        multihost.all_reduce(flat, group=self.mesh.data_group)
+        with torch.no_grad():
+            for g, value in zip(grads, flat.split(
+                    [g.numel() for g in grads] + [1])):
+                g.copy_(value.view_as(g))
+        return flat[-1].to(loss.dtype)
+
     def ensure_init(self):
         """Applies ``loss_weights`` and initializes the parameters from
-        ``seed`` (once)."""
+        ``seed`` (once); under a mesh, broadcasts them from rank 0."""
+        self._ensure_mesh()
         if self.loss_weights:
             # padertorch ``Trainer(loss_weights=...)``: the component
             # weights onto the joint loss' weight attributes
@@ -153,12 +238,15 @@ class Trainer(Configurable):
             self.loss_weights = None
         if not self._initialized:
             self.model.init_params(torch.Generator().manual_seed(self.seed))
+            if self.mesh is not None:
+                mesh_lib.shard_params(self.model, self.mesh)
             self._initialized = True
 
     @property
     def writer(self):
         if self._writer is None:
-            self._writer = SummaryWriter(self.storage_dir)
+            self._writer = SummaryWriter(self.storage_dir,
+                                         write=self.is_writer)
         return self._writer
 
     # ------------------------------------------------------------------
@@ -167,11 +255,14 @@ class Trainer(Configurable):
         optimizer call (the update on the last of
         ``virtual_minibatch_size``) with the generator of (seed, iteration,
         k); counts the iteration after its last micro-step. Returns the
-        loss and the per-example losses, still on the device."""
+        loss (under a mesh, summed over the data ranks) and this rank's
+        per-example losses, still on the device."""
+        batch = self._place_batch(batch)
         self.optimizer.zero_grad()
-        generator = step_generator(self.device, self.seed, self.iteration, k)
+        generator = self._generator(batch, self.seed, self.iteration, k)
         loss, aux = self.model.loss_fn(batch, generator, training=True)
         loss.backward()
+        loss = self._all_reduce_grads(loss)
         self.optimizer.step()
         if k == self.virtual_minibatch_size - 1:
             self.iteration += 1
@@ -200,8 +291,9 @@ class Trainer(Configurable):
         ``summary`` (reference ``model.py:692-752``). Failures are
         recorded as a scalar in the training loop; ``strict=True`` (the
         test_run pre-flight) re-raises."""
-        if not self.create_snapshots or not hasattr(self.model,
-                                                    'add_snapshots'):
+        if not self.create_snapshots or not hasattr(
+                self.model, 'add_snapshots') or not (strict
+                                                     or self.is_writer):
             return
         try:
             out = self.model(batch, generator, training=False)
@@ -244,27 +336,58 @@ class Trainer(Configurable):
         self.ensure_init()
         seed = self.seed + 1 if generator_seed is None else generator_seed
         summary = ReviewSummary()
-        losses = []
         name = self.model.loss.name
+        pers, sums, labels = [], [], []
         for i, ex in enumerate(self._validation_ds):
-            gen = step_generator(self.device, seed, i)
+            ex = self._place_batch(ex)
+            gen = self._generator(ex, seed, i)
             if i == 0:
                 # rich snapshots for the first validation batch
                 self._add_snapshots(ex, summary,
-                                    step_generator(self.device, seed, i))
+                                    self._generator(ex, seed, i))
             with torch.no_grad():
                 loss_sum, aux = self.model.loss_fn(ex, gen, training=False)
-            per_example = np.atleast_1d(
-                aux['per_example_loss'].float().cpu().numpy())
-            losses.extend(per_example.tolist())
-            for ds_name, lv in zip(_datasets(ex, len(per_example),
-                                             'validate'), per_example):
+            pers.append(torch.atleast_1d(aux['per_example_loss']).float())
+            sums.append(loss_sum.detach().float().reshape(1))
+            labels.append(_datasets(ex, len(pers[-1]), 'validate'))
+        if not pers:
+            raise RuntimeError(
+                'Validation dataset yielded no batches: under a mesh, with '
+                'drop_last, the validation set is smaller than the '
+                '(per-process) validation batch size')
+        pers, labels, sums = self._gather_batches(pers, labels, sums)
+        for per_example, names, loss_sum in zip(pers, labels, sums):
+            for ds_name, lv in zip(names, per_example):
                 summary.add_scalar(f'{ds_name}_{name}', lv)
                 summary.add_histogram(f'hist_{ds_name}_{name}', lv)
             summary.add_to_loss(float(loss_sum))
-        if not losses:
-            raise RuntimeError('Validation dataset yielded no batches')
-        return float(np.mean(losses)), summary
+        return float(np.mean(np.concatenate(pers).astype(np.float64))), \
+            summary
+
+    def _gather_batches(self, pers, labels, sums=None):
+        """Per batch: the per-example values (numpy), their dataset names
+        and, given ``sums``, the loss sums of the global batch, in its row
+        order; under a mesh, one ``all_gather`` of the values and one of
+        the names for all the batches (every rank holds as many batches of
+        as many rows)."""
+        sums = [] if sums is None else sums
+        flat = torch.cat([*pers, *sums])
+        if self.mesh is None:
+            stacked, names = flat[None].cpu().numpy(), [labels]
+        else:
+            stacked = multihost.all_gather(
+                flat, group=self.mesh.data_group).cpu().numpy()
+            names = multihost.all_gather_object(labels)
+        ranks = range(stacked.shape[0])
+        values, out_labels, start = [], [], 0
+        for i, per in enumerate(pers):
+            n = len(per)
+            values.append(stacked[:, start:start + n].T.reshape(-1))
+            out_labels.append([names[r][i][j] for j in range(n)
+                               for r in ranks])
+            start += n
+        summed = list(stacked[:, start:].sum(axis=0)) if sums else None
+        return values, out_labels, summed
 
     # ------------------------------------------------------------------
     def test_run(self, train_ds, validation_ds, deterministic_atol=1e-5,
@@ -326,14 +449,17 @@ class Trainer(Configurable):
 
     # ------------------------------------------------------------------
     def save(self, best=False):
+        """Writes a checkpoint from rank 0 (the data ranks hold the same
+        parameters and optimizer state, so nothing is gathered; the other
+        ranks return None)."""
         path = ckpt_lib.save_checkpoint(
             self.checkpoint_dir, self.iteration, self.model,
             optimizer=self.optimizer,
             meta={'best_validation_loss': self.best_validation_loss,
                   'validations_since_best': self._validations_since_best},
             best=best, async_write=self.async_checkpoints,
-            after_write=self._prune_checkpoints)
-        if not self.async_checkpoints:
+            write=self.is_writer, after_write=self._prune_checkpoints)
+        if not self.async_checkpoints and self.is_writer:
             self._prune_checkpoints()
         return path
 
@@ -345,6 +471,8 @@ class Trainer(Configurable):
         self.ensure_init()
         _, _, meta = ckpt_lib.load_checkpoint(path, self.model,
                                               self.optimizer)
+        if self.mesh is not None:
+            mesh_lib.shard_params(self.model, self.mesh)
         self.iteration = int(meta.get('iteration', 0))
         self.best_validation_loss = float(
             meta.get('best_validation_loss', math.inf))
@@ -379,13 +507,15 @@ class Trainer(Configurable):
             if not pending:
                 return
             losses = torch.stack([p[0] for p in pending]).float().tolist()
-            for step_loss, (_, per, datasets) in zip(losses, pending):
+            pers, labels, _ = self._gather_batches(
+                [torch.atleast_1d(p[1]).float() for p in pending],
+                [p[2] for p in pending])
+            for step_loss, per, datasets in zip(losses, pers, labels):
                 if not math.isfinite(step_loss):
                     raise RuntimeError(
                         f'Non-finite loss {step_loss} near iteration '
                         f'{self.iteration}')
                 summary.add_to_loss(step_loss)
-                per = np.atleast_1d(per.float().cpu().numpy())
                 for ds_name, lv in zip(datasets, per):
                     summary.add_scalar(f'{ds_name}_{name}', lv)
             pending = []
@@ -396,7 +526,7 @@ class Trainer(Configurable):
                 ex = next(data)
                 loss, per = self.train_step(ex, k)
                 n = _examples(per)
-                examples_seen += max(n, 1)
+                examples_seen += max(n, 1) * self.data_parallel_size
                 pending.append((loss, per, _datasets(ex, max(n, 1),
                                                      'train')))
 
